@@ -1,0 +1,992 @@
+"""One front door for the port: config → session → verbs.
+
+The counterpart of ``repro.core.tridiag.api``. A frozen :class:`SolverConfig`
+names the whole solve configuration once (sub-system size ``m``, precision,
+stage backend, device, chunk policy, admission and plan-cache knobs) and a
+:class:`TridiagSession` built from it serves every batch shape:
+
+``solve(dl, d, du, b)``
+    one tridiagonal system (1-D diagonals; extra leading dims pass through);
+``solve_batched(dl, d, du, b)``
+    B same-size systems as ``(B, n)`` operands, fused into one dispatch;
+``solve_many(systems)``
+    a ragged list of mixed-size systems, fused into one dispatch;
+``submit(req) -> SolveFuture``
+    asynchronous serving: the request joins the session's admission queue and
+    the future resolves when its batch dispatches.
+
+Every verb runs the fused system-major path of :mod:`.plan` on the
+session's device (``SolverConfig.device``, ``"cuda"`` by default). Verbs take
+numpy arrays or torch tensors and return numpy arrays. The caller's operands
+are never consumed or written to: there is no buffer donation.
+
+``submit`` is backed by a daemon worker thread driving the admission loop of
+:class:`SolveEngine`: a batch leaves the queue at ``max_batch`` requests or
+once its oldest request has waited ``max_wait_ms``; ``max_queue`` bounds the
+queue (:class:`QueueFullError`); a request may carry ``timeout_ms`` and
+``priority``; ``SolveFuture.cancel()`` sheds a still-queued request. Any
+dispatch failure fails exactly that batch's futures, and a worker that dies
+fails every outstanding future with :class:`WorkerDiedError`.
+
+Not in this port yet (``validate()`` raises ``NotImplementedError`` naming
+the ROADMAP item): the staged dispatch and its ``*_timed`` verbs, the
+interleaved layout, the device mesh, closed-loop autotune and
+predicted-latency admission.
+
+Usage::
+
+    from repro_torch.api import SolverConfig, TridiagSession, SolveRequest
+
+    cfg = SolverConfig(m=10, policy=HeuristicChunkPolicy(fitted),
+                       max_batch=64, max_wait_ms=5.0)
+    with TridiagSession(cfg) as session:
+        x = session.solve(dl, d, du, b)
+        xs = session.solve_batched(DL, D, DU, B)
+        ys = session.solve_many(systems)
+        x0 = session.submit(SolveRequest(0, dl, d, du, b)).result(timeout=1.0)
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import math
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.tridiag.batched import fuse_systems, split_systems
+from repro_torch.core.tridiag.plan import (
+    BACKENDS,
+    BackendLike,
+    ChunkPolicy,
+    FusedExecutor,
+    SolvePlan,
+    Sizes,
+    build_plan,
+    effective_size,
+    plan_cache_stats,
+    resolve_backend,
+    set_plan_cache_capacity,
+)
+from repro_torch.core.tridiag.ragged import System, fuse_ragged, split_ragged
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "AUTOTUNE_MODES",
+    "AdmissionPolicy",
+    "DISPATCH_MODES",
+    "LAYOUTS",
+    "QueueFullError",
+    "RequestCancelledError",
+    "RequestTimedOutError",
+    "ServingError",
+    "SolveEngine",
+    "SolveFuture",
+    "SolveRequest",
+    "SolverConfig",
+    "TridiagSession",
+    "WorkerDiedError",
+]
+
+#: Valid ``SolverConfig.dispatch`` values (as in the reference).
+DISPATCH_MODES = ("staged", "fused", "auto")
+#: Valid ``SolverConfig.layout`` values (as in the reference).
+LAYOUTS = ("system-major", "interleaved", "auto")
+#: Valid ``SolverConfig.autotune`` values (as in the reference).
+AUTOTUNE_MODES = ("off", "shadow", "live")
+
+
+# ------------------------------------------------------------- typed errors --
+class ServingError(RuntimeError):
+    """Base of the serving layer's typed failures: flow-control signals
+    that callers under load catch to shed, retry or re-route."""
+
+
+class QueueFullError(ServingError):
+    """``submit`` rejected a request because the admission queue is at
+    ``max_queue``; nothing was enqueued."""
+
+
+class RequestTimedOutError(ServingError):
+    """A request's ``timeout_ms`` expired while it was still queued; it was
+    shed before admission. Work already admitted is never interrupted."""
+
+
+class RequestCancelledError(ServingError):
+    """The request was removed from the queue by ``SolveFuture.cancel()``
+    before its batch was taken."""
+
+
+class WorkerDiedError(ServingError):
+    """The session's serving worker terminated abnormally. Every future
+    outstanding at death resolves with this error, and later ``submit``
+    calls raise it: create a new session."""
+
+
+# ------------------------------------------------------------------ request --
+@dataclass
+class SolveRequest:
+    """One tridiagonal system to solve (the serving unit of work).
+
+    ``timeout_ms`` is the request's own queue deadline; ``priority`` orders
+    admission (higher first, FIFO within a priority).
+    """
+
+    rid: int
+    dl: Any
+    d: Any
+    du: Any
+    b: Any
+    timeout_ms: Optional[float] = None
+    priority: int = 0
+
+    @property
+    def size(self) -> int:
+        return int(_shape(self.d)[-1])
+
+
+@dataclass(frozen=True)
+class AdmissionPolicy:
+    """When does a batch leave the queue?
+
+    ``max_batch``    dispatch as soon as this many requests are waiting;
+    ``max_wait_ms``  dispatch a possibly partial batch once the oldest request
+                     has waited this long;
+    ``allow_ragged`` fuse a mixed-size prefix of the queue into one ragged
+                     plan; when False, a batch only takes requests of the head
+                     request's size.
+    """
+
+    max_batch: int = 64
+    max_wait_ms: float = math.inf
+    allow_ragged: bool = True
+
+    def __post_init__(self) -> None:
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_wait_ms < 0:
+            raise ValueError("max_wait_ms must be >= 0")
+
+
+def _shape(a: Any) -> Tuple[int, ...]:
+    """Shape of a numpy array, tensor (on any device) or nested sequence."""
+    return tuple(a.shape) if hasattr(a, "shape") else np.shape(a)
+
+
+def _not_ported(field_: str, value: object, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{field_}={value!r} is not in the port yet (ROADMAP: {item}); the port "
+        f"serves the fused system-major solve on one device"
+    )
+
+
+# ------------------------------------------------------------------- config --
+@dataclass(frozen=True)
+class SolverConfig:
+    """The whole solve configuration, named once.
+
+    The fields and defaults are the reference's (see
+    ``repro.core.tridiag.api.SolverConfig``), plus ``device``:
+
+    ``m``          the paper's sub-system (block) size; every system size must
+                   be a multiple of it.
+    ``dtype``      operand precision; None keeps the input dtype, a float
+                   dtype casts every operand on the way in and the solution
+                   on the way out.
+    ``backend``    ``"auto"`` (the CUDA kernels on a CUDA device, the plain
+                   PyTorch stages on the CPU), ``"cuda"``, ``"reference"``,
+                   or a ``StageBackend``.
+    ``device``     ``"cuda"`` (default) or ``"cpu"``; a session asking for
+                   CUDA where there is none raises ``RuntimeError``.
+    ``dispatch``   ``"auto"`` and ``"fused"`` run the fused path;
+                   ``"staged"`` is not ported yet.
+    ``layout``     ``"auto"`` and ``"system-major"`` run system-major;
+                   ``"interleaved"`` is not ported yet.
+    ``mesh``       None only (the mesh is not ported yet).
+    ``policy`` / ``num_chunks``
+                   a ``ChunkPolicy`` pricing each dispatch, or a fixed chunk
+                   count; mutually exclusive. With neither, unchunked.
+    ``max_batch`` / ``max_wait_ms`` / ``allow_ragged``
+                   admission knobs for :meth:`TridiagSession.submit`.
+    ``max_queue``  backpressure bound on the admission queue (None =
+                   unbounded).
+    ``plan_cache_capacity``
+                   resize the process-wide plan LRU at session construction.
+    ``autotune`` / ``telemetry_capacity`` / ``refit_min_samples`` /
+    ``refit_interval_s`` / ``max_predicted_ms``
+                   the reference's closed-loop knobs: validated as there, but
+                   only their defaults run in the port.
+    """
+
+    m: int = 10
+    dtype: Optional[object] = None
+    backend: BackendLike = "auto"
+    dispatch: str = "auto"
+    layout: str = "auto"
+    mesh: Any = None
+    policy: Optional[ChunkPolicy] = None
+    num_chunks: Optional[int] = None
+    max_batch: int = 64
+    max_wait_ms: float = math.inf
+    allow_ragged: bool = True
+    max_queue: Optional[int] = None
+    plan_cache_capacity: Optional[int] = None
+    autotune: str = "off"
+    telemetry_capacity: int = 1024
+    refit_min_samples: int = 64
+    refit_interval_s: float = 30.0
+    max_predicted_ms: Optional[float] = None
+    device: Union[str, torch.device] = "cuda"
+
+    # -- validation ----------------------------------------------------------
+    def validate(self) -> "SolverConfig":
+        """Check every field; raise with an actionable message on the first
+        problem. Returns self so ``SolverConfig(...).validate()`` chains."""
+        if not isinstance(self.m, (int, np.integer)) or self.m < 2:
+            raise ValueError(
+                f"m={self.m!r}: the sub-system size must be an int >= 2 "
+                f"(the paper uses m=10)"
+            )
+        if self.dtype is not None:
+            try:
+                kind = np.dtype(self.dtype).kind
+            except TypeError:
+                raise ValueError(
+                    f"dtype={self.dtype!r} is not a NumPy dtype; pass "
+                    f"np.float64, np.float32, or None to preserve input dtypes"
+                ) from None
+            if kind != "f":
+                raise ValueError(
+                    f"dtype={self.dtype!r}: the solver runs in floating "
+                    f"point; pass np.float64, np.float32, or None"
+                )
+        resolve_backend(self.backend)  # raises naming the known backends
+        try:
+            dev = torch.device(self.device)
+        except (RuntimeError, TypeError):
+            raise ValueError(
+                f"device={self.device!r}: pass 'cuda', 'cuda:N' or 'cpu'"
+            ) from None
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"device={self.device!r}: the port runs on 'cuda' or 'cpu'")
+        if self.dispatch not in DISPATCH_MODES:
+            raise ValueError(
+                f"dispatch={self.dispatch!r}: must be one of {sorted(DISPATCH_MODES)}"
+            )
+        if self.dispatch == "staged":
+            raise _not_ported("dispatch", self.dispatch, "Queue 1, PlanExecutor")
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout={self.layout!r}: must be one of {sorted(LAYOUTS)}")
+        if self.layout == "interleaved":
+            raise _not_ported("layout", self.layout, "Queue 1, interleaved layout")
+        if self.mesh is not None:
+            raise _not_ported("mesh", self.mesh, "Queue 1, multi-device")
+        if self.policy is not None:
+            if not isinstance(self.policy, ChunkPolicy):
+                raise TypeError(
+                    f"policy must be a ChunkPolicy (e.g. FixedChunkPolicy, "
+                    f"HeuristicChunkPolicy), got {self.policy!r}"
+                )
+            if self.num_chunks is not None:
+                raise ValueError(
+                    "pass policy= or num_chunks=, not both: a policy prices "
+                    "every dispatch, a fixed num_chunks overrides it"
+                )
+        if self.num_chunks is not None and self.num_chunks < 1:
+            raise ValueError(
+                f"num_chunks={self.num_chunks}: must be >= 1 (or None for a "
+                f"policy/unchunked solve)"
+            )
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch={self.max_batch}: must be >= 1")
+        if self.max_wait_ms < 0:
+            raise ValueError(
+                f"max_wait_ms={self.max_wait_ms}: must be >= 0 "
+                f"(math.inf disables the deadline)"
+            )
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(
+                f"max_queue={self.max_queue}: must be >= 1 (None disables "
+                f"backpressure — the queue grows without bound)"
+            )
+        if self.plan_cache_capacity is not None and self.plan_cache_capacity < 0:
+            raise ValueError(
+                f"plan_cache_capacity={self.plan_cache_capacity}: must be "
+                f">= 0 (0 disables plan memoisation, None leaves the "
+                f"process-wide default)"
+            )
+        if self.autotune not in AUTOTUNE_MODES:
+            raise ValueError(
+                f"autotune={self.autotune!r}: must be one of {sorted(AUTOTUNE_MODES)}"
+            )
+        if self.autotune != "off":
+            raise _not_ported("autotune", self.autotune, "Queue 1, closed loop")
+        if self.telemetry_capacity < 0:
+            raise ValueError(
+                f"telemetry_capacity={self.telemetry_capacity}: must be >= 0"
+            )
+        if self.refit_min_samples < 1:
+            raise ValueError(f"refit_min_samples={self.refit_min_samples}: must be >= 1")
+        if self.refit_interval_s < 0:
+            raise ValueError(f"refit_interval_s={self.refit_interval_s}: must be >= 0")
+        # Nothing in the port reads these yet: a non-default value would
+        # silently do nothing.
+        for name in ("telemetry_capacity", "refit_min_samples", "refit_interval_s"):
+            if getattr(self, name) != _DEFAULTS[name]:
+                raise _not_ported(name, getattr(self, name), "Queue 1, closed loop")
+        if self.max_predicted_ms is not None:
+            if self.max_predicted_ms <= 0:
+                raise ValueError(
+                    f"max_predicted_ms={self.max_predicted_ms}: must be > 0 "
+                    f"(None disables predicted-latency admission)"
+                )
+            raise _not_ported(
+                "max_predicted_ms", self.max_predicted_ms, "Queue 1, predicted admission"
+            )
+        return self
+
+    # -- derived views -------------------------------------------------------
+    def replace(self, **changes: Any) -> "SolverConfig":
+        """A copy with ``changes`` applied (e.g. ``cfg.replace(num_chunks=k)``)."""
+        return dataclasses.replace(self, **changes)
+
+    def admission(self) -> AdmissionPolicy:
+        """The admission policy the session's serving queue runs under."""
+        return AdmissionPolicy(
+            max_batch=self.max_batch,
+            max_wait_ms=self.max_wait_ms,
+            allow_ragged=self.allow_ragged,
+        )
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(SolverConfig)}
+
+
+# ------------------------------------------------------------------- future --
+class SolveFuture:
+    """Handle to one submitted request; resolves when its batch dispatches.
+
+    ``result(timeout=)`` blocks until the solution (or re-raises the dispatch
+    error); ``done()`` never blocks; ``exception(timeout=)`` returns the
+    error instead of raising it. ``cancel()`` sheds the request if its batch
+    has not been taken yet.
+    """
+
+    def __init__(self, rid: int) -> None:
+        self.rid = rid
+        self._event = threading.Event()
+        self._value: Optional[np.ndarray] = None
+        self._error: Optional[BaseException] = None
+        # Wired by the session at submit: rid -> bool (de-queued or not).
+        self._cancel_hook: Optional[Callable[[int], bool]] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def cancel(self) -> bool:
+        """True iff the request was still queued and has now been shed."""
+        if self._event.is_set() or self._cancel_hook is None:
+            return False
+        return self._cancel_hook(self.rid)
+
+    def cancelled(self) -> bool:
+        return self._event.is_set() and isinstance(self._error, RequestCancelledError)
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"request {self.rid} not solved within {timeout}s; is its "
+                f"batch still waiting for admission (max_batch/max_wait_ms)?"
+            )
+        if self._error is not None:
+            raise self._error
+        assert self._value is not None  # resolved without error => has a value
+        return self._value
+
+    def exception(self, timeout: Optional[float] = None) -> Optional[BaseException]:
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"request {self.rid} not resolved within {timeout}s")
+        return self._error
+
+    def _resolve(
+        self, value: Optional[np.ndarray] = None, error: Optional[BaseException] = None
+    ) -> None:
+        self._value = value
+        self._error = error
+        self._event.set()
+
+
+@dataclass
+class _Pending:
+    req: SolveRequest
+    t_submit: float
+    seq: int = 0
+    expiry: Optional[float] = None  # absolute clock time; None = no timeout
+
+    @property
+    def sort_key(self) -> Tuple[int, int]:
+        # Admission order: highest priority first, FIFO within a priority.
+        return (-self.req.priority, self.seq)
+
+
+def _torch_dtype(dtype: object) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype  # type: ignore[arg-type]
+
+
+def _cast(a: Any, dtype: object) -> Any:
+    """``a`` in ``dtype`` (None: unchanged), as a tensor if it was one."""
+    if dtype is None:
+        return a
+    if isinstance(a, torch.Tensor):
+        return a.to(_torch_dtype(dtype))
+    return np.asarray(a, dtype=dtype)
+
+
+# ------------------------------------------------------------------- engine --
+class SolveEngine:
+    """Admission-controlled fused solving of a request queue.
+
+    The serving engine behind :meth:`TridiagSession.submit`, driven by the
+    session's worker thread. The engine is synchronous and not thread-safe;
+    the session serialises access to its queue (``_cv``), while dispatches
+    record their stats under the engine's own ``_stats_lock``.
+
+    Chunk pricing: ``policy`` prices each dispatch (through
+    :func:`~repro_torch.core.tridiag.plan.price_chunks` for a heuristic
+    policy), else a fixed ``default_chunks``. Every dispatch fuses its
+    requests on the executor's device and runs ``executor.execute``.
+
+    Results go to the ``on_result``/``on_error`` callbacks; nothing a
+    dispatch does can escape: any failure resolves exactly the affected
+    requests. ``clock`` is injectable so deadline tests can drive virtual
+    time.
+    """
+
+    def __init__(
+        self,
+        *,
+        executor: FusedExecutor,
+        on_result: Callable[[int, np.ndarray], None],
+        on_error: Callable[[int, BaseException], None],
+        m: int = 10,
+        policy: Optional[ChunkPolicy] = None,
+        default_chunks: int = 1,
+        admission: Optional[AdmissionPolicy] = None,
+        clock: Callable[[], float] = time.perf_counter,
+        dtype: Any = None,
+        max_queue: Optional[int] = None,
+    ) -> None:
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue={max_queue}: must be >= 1 (or None)")
+        self.admission = admission if admission is not None else AdmissionPolicy()
+        self.max_batch = self.admission.max_batch
+        self.max_queue = max_queue
+        self.policy = policy
+        self.m = m
+        self.default_chunks = default_chunks
+        self.dtype = dtype
+        self._clock = clock
+        self._executor = executor
+        self._on_result = on_result
+        self._on_error = on_error
+        self._queue: List[_Pending] = []
+        self._seq = 0
+        # The queue is serialised by the owner (the session's lock), but
+        # stats are also written by _dispatch, which the session runs outside
+        # its lock so submits keep flowing during a solve.
+        self._stats_lock = threading.Lock()
+        self.stats: Dict[str, Any] = {
+            "batches": 0,
+            "systems": 0,
+            "wall_s": 0.0,
+            "per_batch": [],
+            "rejected": 0,
+            "timed_out": 0,
+            "cancelled": 0,
+            "failed": 0,
+            "queue_high_water": 0,
+        }
+
+    # -- scheduling ----------------------------------------------------------
+    def submit(self, req: SolveRequest) -> None:
+        """Validate and enqueue a request. Raises :class:`QueueFullError`
+        when ``max_queue`` requests are already waiting."""
+        shape = _shape(req.d)
+        if len(shape) != 1:
+            raise ValueError(
+                f"request {req.rid}: d must be 1-D, got shape {shape} "
+                f"(use solve_batched for (B, n) operands)"
+            )
+        # Name a mismatched diagonal here, not inside a fused batch of
+        # innocent neighbours.
+        for name in ("dl", "du", "b"):
+            a_shape = _shape(getattr(req, name))
+            if a_shape != shape:
+                raise ValueError(
+                    f"request {req.rid}: {name} has shape {a_shape} but the "
+                    f"request's size is {req.size} (d has shape {shape}); "
+                    f"all four diagonals must be equally long"
+                )
+        if req.size % self.m:
+            raise ValueError(f"request {req.rid}: size {req.size} not divisible by m={self.m}")
+        if req.timeout_ms is not None and req.timeout_ms < 0:
+            raise ValueError(
+                f"request {req.rid}: timeout_ms={req.timeout_ms} must be "
+                f">= 0 (or None for no queue deadline)"
+            )
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            with self._stats_lock:
+                self.stats["rejected"] += 1
+            raise QueueFullError(
+                f"request {req.rid} rejected: admission queue is full "
+                f"({len(self._queue)}/{self.max_queue} waiting); retry later "
+                f"or shed (try_submit returns None instead of raising)"
+            )
+        if self.dtype is not None:
+            req = dataclasses.replace(
+                req, **{name: _cast(getattr(req, name), self.dtype) for name in ("dl", "d", "du", "b")}
+            )
+        now = self._clock()
+        self._seq += 1
+        pending = _Pending(
+            req,
+            now,
+            seq=self._seq,
+            expiry=None if req.timeout_ms is None else now + req.timeout_ms / 1e3,
+        )
+        # Sorted by (-priority, seq), so _take_group's prefix IS the admission order.
+        bisect.insort(self._queue, pending, key=lambda p: p.sort_key)
+        with self._stats_lock:
+            self.stats["queue_high_water"] = max(self.stats["queue_high_water"], len(self._queue))
+
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def cancel(self, rid: int) -> Optional[SolveRequest]:
+        """Remove a still-queued request; returns it, or None if no request
+        with ``rid`` is waiting. The caller resolves its future."""
+        for i, p in enumerate(self._queue):
+            if p.req.rid == rid:
+                del self._queue[i]
+                with self._stats_lock:
+                    self.stats["cancelled"] += 1
+                return p.req
+        return None
+
+    def shed_expired(self, now: Optional[float] = None) -> int:
+        """Drop every queued request whose ``timeout_ms`` has expired,
+        failing each via ``on_error`` with :class:`RequestTimedOutError`;
+        returns how many were shed."""
+        if not self._queue:
+            return 0
+        now = self._clock() if now is None else now
+        live = [p for p in self._queue if p.expiry is None or now < p.expiry]
+        expired = [p for p in self._queue if not (p.expiry is None or now < p.expiry)]
+        if not expired:
+            return 0
+        self._queue = live
+        with self._stats_lock:
+            self.stats["timed_out"] += len(expired)
+        for p in expired:
+            err = RequestTimedOutError(
+                f"request {p.req.rid} spent more than its timeout_ms="
+                f"{p.req.timeout_ms} in the admission queue and was shed "
+                f"before dispatch"
+            )
+            try:
+                self._on_error(p.req.rid, err)
+            except Exception:
+                pass  # an error channel that raises must not kill serving
+        return len(expired)
+
+    def pick_chunks_ragged(self, sizes: Sequence[int]) -> int:
+        """Chunk count for any dispatch: the policy's pick for the batch,
+        else the fixed ``default_chunks``."""
+        if self.policy is not None:
+            return max(1, int(self.policy.num_chunks(tuple(sizes), self.m)))
+        return self.default_chunks
+
+    # -- admission -----------------------------------------------------------
+    def _oldest_submit(self) -> float:
+        # queue[0] is the highest-priority entry; the deadline is the oldest's.
+        return min(p.t_submit for p in self._queue)
+
+    def seconds_to_next_event(self, now: Optional[float] = None) -> Optional[float]:
+        """Seconds until the admission deadline or the earliest request
+        timeout, whichever is first; None when neither is pending. This is
+        how long the session's worker may sleep."""
+        if not self._queue:
+            return None
+        now = self._clock() if now is None else now
+        ticks: List[float] = []
+        if not math.isinf(self.admission.max_wait_ms):
+            ticks.append(self._oldest_submit() + self.admission.max_wait_ms / 1e3)
+        ticks.extend(p.expiry for p in self._queue if p.expiry is not None)
+        if not ticks:
+            return None
+        return max(0.0, min(ticks) - now)
+
+    def _deadline_expired(self, now: float) -> bool:
+        return (
+            bool(self._queue)
+            and (now - self._oldest_submit()) * 1e3 >= self.admission.max_wait_ms
+        )
+
+    def take_due_group(self, now: float) -> Optional[List[_Pending]]:
+        """Pop the next admissible batch (max_batch reached or deadline
+        expired), or None. Expired requests are shed first."""
+        self.shed_expired(now)
+        if self._queue and (
+            len(self._queue) >= self.admission.max_batch or self._deadline_expired(now)
+        ):
+            return self._take_group()
+        return None
+
+    def _take_group(self) -> List[_Pending]:
+        q = self._queue
+        if self.admission.allow_ragged:
+            take, self._queue = q[: self.max_batch], q[self.max_batch :]
+            return take
+        # Size-segregated: only the head request's size-mates ride.
+        size0 = q[0].req.size
+        take, rest = [], []
+        for p in q:
+            if p.req.size == size0 and len(take) < self.max_batch:
+                take.append(p)
+            else:
+                rest.append(p)
+        self._queue = rest
+        return take
+
+    def _fail_group(self, reqs: Sequence[SolveRequest], e: BaseException) -> None:
+        """Fail every request in ``reqs`` via ``on_error``."""
+        with self._stats_lock:
+            self.stats["failed"] += len(reqs)
+        for r in reqs:
+            try:
+                self._on_error(r.rid, e)
+            except Exception:
+                pass
+
+    def _dispatch(self, group: List[_Pending], now: float) -> None:
+        """Solve one admitted batch and deliver its results. Everything in
+        here is guarded: a failure fails exactly the affected requests via
+        ``on_error`` and returns normally, so the worker keeps serving."""
+        reqs = [p.req for p in group]
+        t0 = time.perf_counter()
+        try:
+            sizes = tuple(r.size for r in reqs)
+            dl, d, du, b, sizes = fuse_ragged(
+                [(r.dl, r.d, r.du, r.b) for r in reqs], device=self._executor.device
+            )
+            policy = self.policy  # one read: this batch is priced by one policy
+            if policy is not None:
+                plan = build_plan(sizes, self.m, policy=policy)
+            else:
+                plan = build_plan(sizes, self.m, num_chunks=self.pick_chunks_ragged(sizes))
+            x = self._executor.execute(plan, dl, d, du, b)
+            # copy: split_ragged returns views, which would pin the whole
+            # fused solution for as long as any one result is retained
+            solutions = [np.array(xi, dtype=self.dtype, copy=True) for xi in split_ragged(x, sizes)]
+            dt = time.perf_counter() - t0
+            waits_ms = [(now - p.t_submit) * 1e3 for p in group]
+            # Recorded BEFORE futures resolve: a caller unblocked by
+            # fut.result() may read session.stats at once.
+            with self._stats_lock:
+                self.stats["batches"] += 1
+                self.stats["systems"] += len(reqs)
+                self.stats["wall_s"] += dt
+                self.stats["per_batch"].append(
+                    {
+                        "systems": len(reqs),
+                        "sizes": sizes,
+                        "effective_size": effective_size(sizes),
+                        "ragged": len(set(sizes)) > 1,
+                        "num_chunks": plan.num_chunks,
+                        "latency_ms": dt * 1e3,
+                        "mean_wait_ms": float(np.mean(waits_ms)),
+                        "max_wait_ms": float(np.max(waits_ms)),
+                    }
+                )
+        except Exception as e:
+            self._fail_group(reqs, e)
+            return
+        for r, xi in zip(reqs, solutions):
+            try:
+                self._on_result(r.rid, xi)
+            except Exception as e:
+                # A result channel that raises fails only ITS request.
+                self._fail_group([r], e)
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """A consistent copy of :attr:`stats` plus the instantaneous
+        ``queue_depth``."""
+        with self._stats_lock:
+            snap = {
+                k: (v if not isinstance(v, list) else [dict(pb) for pb in v])
+                for k, v in self.stats.items()
+            }
+        snap["queue_depth"] = len(self._queue)
+        return snap
+
+
+# ------------------------------------------------------------------ session --
+class TridiagSession:
+    """The facade: one configured object serving every batch shape.
+
+    Synchronous verbs (:meth:`solve`, :meth:`solve_batched`,
+    :meth:`solve_many`) run on the caller's thread. :meth:`submit` is
+    asynchronous: a daemon worker thread, started by the first submit,
+    drives the admission loop. :meth:`close` drains the queue (every
+    outstanding future completes) and stops the worker; the session is a
+    context manager.
+
+    Constructing a session for ``device="cuda"`` where torch sees no CUDA
+    device raises ``RuntimeError``.
+    """
+
+    def __init__(self, config: Optional[SolverConfig] = None) -> None:
+        self.config = (SolverConfig() if config is None else config).validate()
+        self.device = resolve_device(self.config.device)
+        self.backend = resolve_backend(self.config.backend, self.device)
+        self._fused = FusedExecutor(self.backend, device=self.device)
+        if self.config.plan_cache_capacity is not None:
+            set_plan_cache_capacity(self.config.plan_cache_capacity)
+        # RLock-backed so _resolve_future can take it from paths that
+        # already hold it (the serve loop's failure drain).
+        self._cv = threading.Condition(threading.RLock())
+        self._futures: Dict[int, SolveFuture] = {}
+        self._worker: Optional[threading.Thread] = None
+        self._closed = False
+        self._worker_error: Optional[BaseException] = None
+        self._engine = SolveEngine(
+            executor=self._fused,
+            on_result=lambda rid, x: self._resolve_future(rid, value=x),
+            on_error=lambda rid, e: self._resolve_future(rid, error=e),
+            m=self.config.m,
+            policy=self.config.policy,
+            default_chunks=self.config.num_chunks or 1,
+            admission=self.config.admission(),
+            dtype=self.config.dtype,
+            max_queue=self.config.max_queue,
+        )
+
+    # -- planning ------------------------------------------------------------
+    def plan_for(self, sizes: Sizes) -> SolvePlan:
+        """The plan this session executes for ``sizes`` (int or sequence)."""
+        if self.config.policy is not None:
+            return build_plan(sizes, self.config.m, policy=self.config.policy)
+        return build_plan(sizes, self.config.m, num_chunks=self.config.num_chunks or 1)
+
+    def _cast(self, *arrays: Any) -> Tuple[Any, ...]:
+        return tuple(_cast(a, self.config.dtype) for a in arrays)
+
+    def _cast_out(self, x: np.ndarray) -> np.ndarray:
+        if self.config.dtype is None:
+            return x
+        return np.asarray(x, dtype=self.config.dtype)
+
+    # -- synchronous verbs ---------------------------------------------------
+    def solve(self, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
+        """Solve one system (1-D diagonals; leading batch dims pass through).
+        The operands are left as they were (no donation)."""
+        dl, d, du, b = self._cast(dl, d, du, b)
+        n = int(_shape(d)[-1])
+        return self._cast_out(self._fused.execute(self.plan_for(n), dl, d, du, b))
+
+    def solve_batched(self, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
+        """Solve B same-size systems given as (B, n) operands."""
+        dl, d, du, b = self._cast(dl, d, du, b)
+        shape = _shape(d)
+        if len(shape) != 2:
+            raise ValueError(
+                f"solve_batched takes (batch, n) operands, got shape {shape}; "
+                f"use solve() for one system or solve_many() for mixed sizes"
+            )
+        batch, n = shape
+        fused = fuse_systems(dl, d, du, b, device=self.device)
+        x = self._fused.execute(self.plan_for((n,) * batch), *fused)
+        return split_systems(self._cast_out(x), batch)
+
+    def solve_many(self, systems: Sequence[System]) -> List[np.ndarray]:
+        """Solve a ragged list of ``(dl, d, du, b)`` systems in one dispatch."""
+        if self.config.dtype is not None:
+            systems = [self._cast(*s) for s in systems]  # type: ignore[misc]
+        dl, d, du, b, sizes = fuse_ragged(systems, device=self.device)
+        x = self._fused.execute(self.plan_for(sizes), dl, d, du, b)
+        return split_ragged(self._cast_out(x), sizes)
+
+    # -- asynchronous serving ------------------------------------------------
+    def submit(self, req: SolveRequest) -> SolveFuture:
+        """Enqueue a request; the future resolves when its batch dispatches.
+        Raises :class:`QueueFullError` when ``max_queue`` requests are
+        waiting and :class:`WorkerDiedError` if the worker has died."""
+        fut = self._submit(req, raise_on_full=True)
+        assert fut is not None
+        return fut
+
+    def try_submit(self, req: SolveRequest) -> Optional[SolveFuture]:
+        """Like :meth:`submit`, but returns None (nothing enqueued) instead
+        of raising :class:`QueueFullError` when the queue is full."""
+        return self._submit(req, raise_on_full=False)
+
+    def _submit(self, req: SolveRequest, *, raise_on_full: bool) -> Optional[SolveFuture]:
+        fut = SolveFuture(req.rid)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(
+                    "session is closed; create a new TridiagSession (close() "
+                    "drains the queue, it cannot be reopened)"
+                )
+            if self._worker_error is not None or (
+                self._worker is not None and not self._worker.is_alive()
+            ):
+                raise WorkerDiedError(
+                    f"the serving worker of this session died "
+                    f"({self._worker_error!r}); its futures were failed — "
+                    f"create a new TridiagSession"
+                ) from self._worker_error
+            if req.rid in self._futures:
+                raise ValueError(
+                    f"request id {req.rid} is already in flight in this "
+                    f"session; rids must be unique among pending requests"
+                )
+            self._futures[req.rid] = fut
+            try:
+                self._engine.submit(req)
+            except QueueFullError:
+                del self._futures[req.rid]
+                if raise_on_full:
+                    raise
+                return None
+            except Exception:
+                del self._futures[req.rid]
+                raise
+            fut._cancel_hook = self._cancel
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._serve_loop, name="tridiag-session-worker", daemon=True
+                )
+                self._worker.start()
+            self._cv.notify_all()
+        return fut
+
+    def _cancel(self, rid: int) -> bool:
+        """``SolveFuture.cancel`` hook: shed a still-queued request."""
+        with self._cv:
+            req = self._engine.cancel(rid)
+            if req is None:
+                return False  # already admitted (in flight) or resolved
+        self._resolve_future(
+            rid,
+            error=RequestCancelledError(
+                f"request {rid} was cancelled while queued (its batch had not been taken)"
+            ),
+        )
+        return True
+
+    def _resolve_future(
+        self,
+        rid: int,
+        value: Optional[np.ndarray] = None,
+        error: Optional[BaseException] = None,
+    ) -> None:
+        with self._cv:
+            fut = self._futures.pop(rid, None)
+        if fut is not None:
+            fut._resolve(value, error)
+
+    def _serve_loop(self) -> None:
+        """Worker: dispatch due batches, sleep exactly until the next trigger.
+
+        The lock is held only for queue surgery; each solve runs outside it,
+        so submits keep enqueuing while a batch is in flight. An escape the
+        engine could not attribute to one batch fails every outstanding
+        future with :class:`WorkerDiedError` before the thread exits.
+        """
+        try:
+            while True:
+                with self._cv:
+                    now = self._engine._clock()
+                    group = self._engine.take_due_group(now)
+                    if group is None:
+                        if self._closed:
+                            self._engine.shed_expired(now)
+                            if self._engine.pending() == 0:
+                                return
+                            group = self._engine._take_group()  # drain mode
+                        else:
+                            self._cv.wait(timeout=self._engine.seconds_to_next_event(now))
+                            continue
+                try:
+                    self._engine._dispatch(group, now)  # futures resolve in here
+                except BaseException as e:
+                    for p in group:
+                        self._resolve_future(p.req.rid, error=e)
+                    if not isinstance(e, Exception):
+                        raise  # fatal (MemoryError & co) → outer supervisor
+        except BaseException as e:
+            with self._cv:
+                self._worker_error = e
+                died = WorkerDiedError(
+                    f"serving worker died: {e!r}; this session can no longer serve submits"
+                )
+                died.__cause__ = e
+                self._engine._queue.clear()  # their futures fail right here
+                for rid in list(self._futures):
+                    self._resolve_future(rid, error=died)
+                self._cv.notify_all()
+
+    # -- lifecycle -----------------------------------------------------------
+    def pending(self) -> int:
+        """Unresolved requests: queued or in an in-flight batch."""
+        with self._cv:
+            return len(self._futures)
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        """A consistent snapshot: the engine's dispatch aggregates and
+        load-shedding counters, queue occupancy (``queue_depth``,
+        ``queue_high_water``, ``unresolved``), the process-wide
+        ``plan_cache`` counters and the session's ``device``."""
+        with self._cv:
+            snap = self._engine.stats_snapshot()
+            snap["unresolved"] = len(self._futures)
+        snap["plan_cache"] = plan_cache_stats()
+        snap["device"] = str(self.device)
+        snap["backend"] = self.backend.name
+        return snap
+
+    def close(self) -> None:
+        """Drain the queue (outstanding futures complete), stop the worker.
+        Idempotent; ``submit`` after it raises. Synchronous verbs stay usable."""
+        with self._cv:
+            self._closed = True
+            worker = self._worker
+            self._cv.notify_all()
+        if worker is not None:
+            worker.join()
+
+    def __enter__(self) -> "TridiagSession":
+        return self
+
+    def __exit__(self, exc_type: object, exc: object, tb: object) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        with self._cv:
+            state = "closed" if self._closed else "open"
+            pending = self._engine.pending()
+        return (
+            f"TridiagSession(m={self.config.m}, backend={self.backend.name!r}, "
+            f"device={str(self.device)!r}, {state}, pending={pending})"
+        )
+
+
+# Convenience: the registry names a config's backend may take.
+BACKEND_NAMES = tuple(sorted(BACKENDS))

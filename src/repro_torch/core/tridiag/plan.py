@@ -1,0 +1,482 @@
+"""Plan/execute layer of the port: one execution path for every solve.
+
+The counterpart of ``repro.core.tridiag.plan`` for the single-device,
+system-major fused solve. A :class:`SolvePlan` is an immutable layout
+decision: which systems are fused onto the block axis, where the chunk
+("stream") boundaries fall, which halo block each chunk carries, and where
+each system's solution lives in the fused vector. The chunk count is given
+explicitly or priced by a :class:`ChunkPolicy` (:func:`price_chunks` is the
+one pricing rule, shared with the serving path).
+
+:class:`FusedExecutor` runs a plan on one device with no host round-trip
+between the stages: per chunk, Stage 1 on the chunk plus its halo block;
+one reduced (Stage-2) solve of all chunks' reduced rows on the device; per
+chunk, Stage 3 with the left neighbour's interface value spliced in. That is
+one Stage-1 launch and one Stage-3 launch per chunk on the current stream,
+so the heuristic's chunk count reaches the card.
+
+*How* the stages run is a :class:`StageBackend`: :class:`ReferenceBackend`
+(the plain PyTorch stages of :mod:`.partition`) or :class:`CudaBackend` (the
+hand-written kernels of :mod:`repro_torch.kernels`). ``"auto"`` resolves to
+the kernels on a CUDA device and to the reference stages on the CPU.
+
+Plans are memoised by their ``(sizes, m, num_chunks)`` signature in a bounded,
+lock-protected LRU: a session solves from its worker thread and its caller's
+thread at once, and serving traffic repeats batch compositions.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.tridiag import partition
+from repro_torch.core.tridiag.batched import as_tensor
+from repro_torch.core.tridiag.thomas import thomas
+from repro_torch.device import resolve_device
+
+Sizes = Union[int, Sequence[int]]
+Tensor = torch.Tensor
+
+
+def effective_size(sizes: Sizes) -> int:
+    """Effective element count ``Σ nᵢ`` of a (possibly ragged) fused batch:
+    the size feature the stream heuristic prices it by."""
+    if isinstance(sizes, (int, np.integer)):
+        return int(sizes)
+    return int(sum(int(n) for n in sizes))
+
+
+# ------------------------------------------------------------ stage backends --
+class StageBackend:
+    """How the executor's device stages are implemented.
+
+    ``make_stage1(m)`` returns ``(dl, d, du, b) -> PartitionCoeffs``;
+    ``make_stage3()`` returns ``(coeffs, s, left) -> x``, where ``left`` is
+    s_{p-1} of each system's first block; ``make_reduced_solve()`` returns
+    the Stage-2 solver ``(red_dl, red_d, red_du, red_b) -> s``. All take
+    operands with an optional leading batch axis.
+    """
+
+    name = "abstract"
+
+    def make_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
+        raise NotImplementedError
+
+    def make_stage3(self) -> Callable[..., Tensor]:
+        raise NotImplementedError
+
+    def make_reduced_solve(self) -> Callable[..., Tensor]:
+        return thomas
+
+
+@dataclass(frozen=True)
+class ReferenceBackend(StageBackend):
+    """Plain PyTorch stages (:mod:`repro_torch.core.tridiag.partition`)."""
+
+    name = "reference"
+
+    def make_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
+        return partial(partition.partition_stage1, m=m)
+
+    def make_stage3(self) -> Callable[..., Tensor]:
+        return partition.partition_stage3
+
+
+@dataclass(frozen=True)
+class CudaBackend(StageBackend):
+    """The hand-written kernels (:mod:`repro_torch.kernels`).
+
+    Operands with a leading batch axis go to the batched wrappers (the fused
+    executor flattens several leading dims to one before). On CUDA
+    tensors every wrapper launches its kernel or raises; on CPU tensors it
+    runs its plain version, which is how the CPU tests drive this backend.
+    """
+
+    name = "cuda"
+
+    def make_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
+        from repro_torch.kernels.partition_stage1.ops import (
+            partition_stage1_cuda,
+            partition_stage1_cuda_batched,
+        )
+
+        def stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor) -> partition.PartitionCoeffs:
+            if d.ndim == 1:
+                return partition_stage1_cuda(dl, d, du, b, m=m)
+            if d.ndim == 2:
+                return partition_stage1_cuda_batched(dl, d, du, b, m=m)
+            raise ValueError(
+                f"CudaBackend stage 1 takes (n,) or (batch, n) operands, got {d.ndim}-D"
+            )
+
+        return stage1
+
+    def make_stage3(self) -> Callable[..., Tensor]:
+        from repro_torch.kernels.partition_stage3.ops import (
+            partition_stage3_cuda,
+            partition_stage3_cuda_batched,
+        )
+
+        def stage3(coeffs: partition.PartitionCoeffs, s: Tensor, left: Optional[Tensor] = None) -> Tensor:
+            if s.ndim == 1:
+                return partition_stage3_cuda(coeffs, s, left)
+            if s.ndim == 2:
+                return partition_stage3_cuda_batched(coeffs, s, left)
+            raise ValueError(
+                f"CudaBackend stage 3 takes (P,) or (batch, P) interface values, got {s.ndim}-D"
+            )
+
+        return stage3
+
+    def make_reduced_solve(self) -> Callable[..., Tensor]:
+        from repro_torch.kernels.thomas.ops import thomas_cuda
+
+        return thomas_cuda
+
+
+@dataclass(frozen=True)
+class AutoBackend(StageBackend):
+    """Device-resolved backend: the kernels on a CUDA device, the reference
+    stages on the CPU. :func:`resolve_backend` unwraps it."""
+
+    name = "auto"
+
+    def resolve(self, device: torch.device) -> StageBackend:
+        return BACKENDS["cuda" if device.type == "cuda" else "reference"]
+
+
+#: Registry consulted when ``backend=`` is given as a string.
+BACKENDS: Dict[str, StageBackend] = {
+    b.name: b for b in (ReferenceBackend(), CudaBackend(), AutoBackend())
+}
+
+BackendLike = Union[StageBackend, str, None]
+
+
+def resolve_backend(backend: BackendLike, device: Optional[torch.device] = None) -> StageBackend:
+    """Normalise a ``backend=`` argument: None → reference, str → registry,
+    ``"auto"`` → the kernels on a CUDA ``device``, the reference stages on
+    the CPU (or with no device given)."""
+    if backend is None:
+        return BACKENDS["reference"]
+    if isinstance(backend, str):
+        try:
+            backend = BACKENDS[backend]
+        except KeyError:
+            raise ValueError(
+                f"unknown stage backend {backend!r}; known: {sorted(BACKENDS)}"
+            ) from None
+    if isinstance(backend, AutoBackend):
+        return backend.resolve(device if device is not None else torch.device("cpu"))
+    if isinstance(backend, StageBackend):
+        return backend
+    raise TypeError(f"backend must be a StageBackend, name or None, got {backend!r}")
+
+
+# ------------------------------------------------------------ chunk policies --
+def price_chunks(heuristic: Any, sizes: Sizes, *, fp32: bool = False) -> int:
+    """THE chunk-pricing rule: one heuristic call for every entry point.
+
+    Heuristics exposing ``predict_optimum_ragged`` are preferred; plain 1-D
+    heuristics are priced at the batch's effective size ``Σ nᵢ``. The
+    paper's FP32 rule (§3.2: halve the FP64 optimum) applies on top. The
+    result is clamped to ``>= 1``.
+    """
+    if isinstance(sizes, (int, np.integer)):
+        sizes = (int(sizes),)
+    sizes = tuple(int(n) for n in sizes)
+    if fp32 and hasattr(heuristic, "predict_optimum_fp32"):
+        k = int(heuristic.predict_optimum_fp32(float(effective_size(sizes))))
+    elif hasattr(heuristic, "predict_optimum_ragged"):
+        k = int(heuristic.predict_optimum_ragged(sizes))
+        if fp32:
+            k //= 2
+    else:
+        k = int(heuristic.predict_optimum(float(effective_size(sizes))))
+        if fp32:
+            k //= 2
+    return max(1, k)
+
+
+class ChunkPolicy:
+    """Strategy choosing the chunk ("stream") count for a plan; `build_plan`
+    clamps the answer to ``[1, num_blocks]``."""
+
+    def num_chunks(self, sizes: Tuple[int, ...], m: int) -> int:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class FixedChunkPolicy(ChunkPolicy):
+    """Always use ``k`` chunks (the paper's fixed-``num_str`` baseline)."""
+
+    k: int
+
+    def num_chunks(self, sizes: Tuple[int, ...], m: int) -> int:
+        return self.k
+
+
+@dataclass(frozen=True)
+class HeuristicChunkPolicy(ChunkPolicy):
+    """Price the batch by its effective size through a fitted heuristic
+    (a ``StreamHeuristic`` or ``BatchedStreamHeuristic``), via
+    :func:`price_chunks`."""
+
+    heuristic: object
+    fp32: bool = False
+
+    def num_chunks(self, sizes: Tuple[int, ...], m: int) -> int:
+        return price_chunks(self.heuristic, sizes, fp32=self.fp32)
+
+
+# ----------------------------------------------------------------- the plan --
+@dataclass(frozen=True)
+class SolvePlan:
+    """Immutable layout of one fused chunked partition solve.
+
+    ``sizes`` lists the fused systems in order; ``chunk_bounds`` are
+    half-open block-index ranges over the fused block axis; ``halo_bounds``
+    extend each chunk by its one right halo block (a chunk's last reduced row
+    references the next block's spikes); ``offsets`` is the per-system
+    element offset table (length B+1).
+    """
+
+    m: int
+    sizes: Tuple[int, ...]
+    chunk_bounds: Tuple[Tuple[int, int], ...]
+    halo_bounds: Tuple[Tuple[int, int], ...]
+    offsets: Tuple[int, ...]
+
+    @property
+    def total_size(self) -> int:
+        return self.offsets[-1]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.total_size // self.m
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunk_bounds)
+
+
+# ------------------------------------------------------------- plan cache --
+# _CACHE_LOCK guards the plan LRU, its counters and its capacity: sessions
+# plan from their worker thread and their callers' threads at once.
+_CACHE_LOCK = threading.RLock()
+_PLAN_CACHE_CAPACITY = 1024
+_PLAN_CACHE: "OrderedDict[Tuple[Tuple[int, ...], int, int], SolvePlan]" = OrderedDict()
+_PLAN_STATS = {"hits": 0, "misses": 0}
+
+
+def plan_cache_stats() -> Dict[str, int]:
+    """Hit/miss counters of the build_plan memo (plus its current size)."""
+    with _CACHE_LOCK:
+        return {**_PLAN_STATS, "size": len(_PLAN_CACHE)}
+
+
+def clear_plan_cache() -> None:
+    """Empty the plan memo and reset its counters (test isolation hook)."""
+    with _CACHE_LOCK:
+        _PLAN_CACHE.clear()
+        _PLAN_STATS["hits"] = 0
+        _PLAN_STATS["misses"] = 0
+
+
+def set_plan_cache_capacity(capacity: int) -> None:
+    """Resize the plan LRU (process-wide); 0 disables plan memoisation.
+    Plans beyond the new capacity are evicted oldest-first."""
+    global _PLAN_CACHE_CAPACITY
+    if capacity < 0:
+        raise ValueError(f"plan cache capacity must be >= 0, got {capacity}")
+    with _CACHE_LOCK:
+        _PLAN_CACHE_CAPACITY = int(capacity)
+        while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
+            _PLAN_CACHE.popitem(last=False)
+
+
+def build_plan(
+    sizes: Sizes,
+    m: int = 10,
+    *,
+    num_chunks: Optional[int] = None,
+    policy: Optional[ChunkPolicy] = None,
+) -> SolvePlan:
+    """Build the :class:`SolvePlan` for a batch of systems of ``sizes``.
+
+    ``sizes`` is one int (single solve) or a sequence (fused batch, possibly
+    ragged). At most one of ``num_chunks``/``policy`` may be given; with
+    neither, the plan is unchunked. The chunk count is clamped into
+    ``[1, num_blocks]`` (a policy may round to 0 on tiny sizes; an explicit
+    ``num_chunks < 1`` is a caller error). Blocks are split as evenly as
+    possible, remainder blocks to the leading chunks.
+    """
+    if isinstance(sizes, (int, np.integer)):
+        sizes = (int(sizes),)
+    sizes = tuple(int(n) for n in sizes)
+    if not sizes:
+        raise ValueError("empty plan: at least one system required")
+    if m < 2:
+        raise ValueError("sub-system size m must be >= 2")
+    for n in sizes:
+        if n < m or n % m:
+            raise ValueError(f"system size {n} not divisible by m={m}")
+    if num_chunks is not None and policy is not None:
+        raise ValueError("pass num_chunks or policy, not both")
+    if policy is not None:
+        k = max(1, int(policy.num_chunks(sizes, m)))
+    else:
+        k = 1 if num_chunks is None else int(num_chunks)
+        if k < 1:
+            raise ValueError("num_chunks must be >= 1")
+
+    num_blocks = sum(sizes) // m
+    k = min(k, num_blocks)
+
+    key = (sizes, m, k)
+    with _CACHE_LOCK:
+        cached = _PLAN_CACHE.get(key)
+        if cached is not None:
+            _PLAN_CACHE.move_to_end(key)
+            _PLAN_STATS["hits"] += 1
+            return cached
+        _PLAN_STATS["misses"] += 1
+
+    bounds: List[Tuple[int, int]] = []
+    start = 0
+    for i in range(k):
+        size = num_blocks // k + (1 if i < num_blocks % k else 0)
+        bounds.append((start, start + size))
+        start += size
+    halos = tuple((lo, min(hi + 1, num_blocks)) for lo, hi in bounds)
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + n)
+    plan = SolvePlan(
+        m=m,
+        sizes=sizes,
+        chunk_bounds=tuple(bounds),
+        halo_bounds=halos,
+        offsets=tuple(offsets),
+    )
+    with _CACHE_LOCK:
+        # A racing thread may have built the same plan meanwhile; keep its
+        # entry so hits keep returning one shared object.
+        existing = _PLAN_CACHE.get(key)
+        if existing is not None:
+            return existing
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
+            _PLAN_CACHE.popitem(last=False)
+    return plan
+
+
+# -------------------------------------------------------- the fused executor --
+def _trim_halo(c: partition.PartitionCoeffs, nb: int) -> partition.PartitionCoeffs:
+    """Drop the halo block's rows: its reduced row belongs to the next chunk
+    (which recomputes it as an owner), and its spikes only exist to close the
+    owner rows' right-neighbour references."""
+    return partition.PartitionCoeffs(
+        y=c.y[..., :nb, :],
+        v=c.v[..., :nb, :],
+        w=c.w[..., :nb, :],
+        red_dl=c.red_dl[..., :nb],
+        red_d=c.red_d[..., :nb],
+        red_du=c.red_du[..., :nb],
+        red_b=c.red_b[..., :nb],
+    )
+
+
+def _stage3_with_ghost(
+    stage3_fn: Callable[..., Tensor],
+    coeffs: partition.PartitionCoeffs,
+    s_chunk: Tensor,
+    s_left_edge: Tensor,
+) -> Tensor:
+    """Run stage 3 on a chunk whose left neighbour lives in another chunk.
+
+    The reference splices the neighbour's last interface value in as a
+    zeroed ghost block prepended to the chunk. Here the stage takes that
+    value directly as s_{p-1} of the chunk's first block (``left``), which
+    gives the same numbers without copying the chunk's spikes.
+    """
+    spikes = [a.contiguous() for a in coeffs[:3]]
+    return stage3_fn(
+        partition.PartitionCoeffs(*spikes, *coeffs[3:]),
+        s_chunk.contiguous(),
+        s_left_edge.contiguous(),
+    )
+
+
+def _fused(plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Tensor, b: Tensor) -> Tensor:
+    """The system-major three-stage solve of ``plan`` on the operands' device.
+
+    Operands are (n,) or carry leading batch dims; more than one leading dim
+    is flattened to one batch axis for the stages and restored after.
+    """
+    if d.ndim > 2:
+        flat = [a.reshape(-1, a.shape[-1]) for a in (dl, d, du, b)]
+        return _fused(plan, backend, *flat).reshape(d.shape)
+    m = plan.m
+    stage1 = backend.make_stage1(m)
+    stage3 = backend.make_stage3()
+    reduced_solve = backend.make_reduced_solve()
+
+    coeffs = []
+    for (lo, hi), (_, hi_halo) in zip(plan.chunk_bounds, plan.halo_bounds):
+        chunk = [a[..., lo * m : hi_halo * m].contiguous() for a in (dl, d, du, b)]
+        coeffs.append(_trim_halo(stage1(*chunk), hi - lo))
+    red = [
+        torch.cat([getattr(c, f) for c in coeffs], dim=-1)
+        if len(coeffs) > 1
+        else getattr(coeffs[0], f).contiguous()
+        for f in ("red_dl", "red_d", "red_du", "red_b")
+    ]
+    s = reduced_solve(*red)
+    outs = []
+    for (lo, hi), c in zip(plan.chunk_bounds, coeffs):
+        s_left_edge = torch.zeros_like(s[..., 0]) if lo == 0 else s[..., lo - 1]
+        outs.append(_stage3_with_ghost(stage3, c, s[..., lo:hi], s_left_edge))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+class FusedExecutor:
+    """Runs a :class:`SolvePlan` on one device, all three stages there.
+
+    Operands (numpy arrays or tensors; 1-D over ``plan.total_size`` or with
+    leading batch dims) are moved to ``device`` (the card unless the caller
+    asks for the CPU; a missing card raises) in one dtype: the input's,
+    with mixed inputs promoted by torch's rules. The caller's arrays and
+    tensors are never written to or consumed (no buffer donation). The
+    solution comes back as a numpy array; nothing crosses to the host before
+    that.
+    """
+
+    def __init__(self, backend: BackendLike = "auto", *, device: Union[str, torch.device] = "cuda") -> None:
+        self.device = resolve_device(device)
+        self.backend = resolve_backend(backend, self.device)
+
+    def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
+        ops = [as_tensor(a, self.device) for a in (dl, d, du, b)]
+        dtype = ops[0].dtype
+        for a in ops[1:]:
+            dtype = torch.promote_types(dtype, a.dtype)
+        if not dtype.is_floating_point:
+            raise TypeError(f"the solver runs in floating point, got {dtype} operands")
+        ops = [a.to(dtype) for a in ops]
+        shape = ops[1].shape
+        for a in ops:
+            if a.shape != shape:
+                raise ValueError(f"operand shapes differ: {tuple(a.shape)} vs {tuple(shape)}")
+        n = int(shape[-1])
+        if n != plan.total_size:
+            raise ValueError(f"operands have {n} rows but the plan lays out {plan.total_size}")
+        x = _fused(plan, self.backend, *ops)
+        return x.cpu().numpy()

@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels of the port and their PyTorch wrappers.
+
+Each subpackage holds one wrapper (CPU tensors → its plain PyTorch version,
+CUDA tensors → its kernel from ``repro_torch/csrc``, or an error) and the
+launch counter it adds to where it launches. :data:`LAUNCH_COUNTERS` names
+them all, so a run can zero them and read which kernels its main path used.
+"""
+
+from typing import Dict
+
+from repro_torch.kernels.common import LaunchCounter
+from repro_torch.kernels.partition_stage1.ops import STAGE1_LAUNCHES
+from repro_torch.kernels.partition_stage3.ops import STAGE3_LAUNCHES
+from repro_torch.kernels.thomas.ops import THOMAS_LAUNCHES
+
+LAUNCH_COUNTERS: Dict[str, LaunchCounter] = {
+    c.name: c for c in (STAGE1_LAUNCHES, THOMAS_LAUNCHES, STAGE3_LAUNCHES)
+}
+
+__all__ = ["LAUNCH_COUNTERS"]

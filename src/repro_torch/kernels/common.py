@@ -1,0 +1,128 @@
+"""Shared helpers for the port's CUDA kernels and their wrappers.
+
+Every wrapper follows one contract: given CPU tensors it runs the kernel's
+plain PyTorch version; given CUDA tensors it launches the hand-written
+kernel (built from ``repro_torch/csrc`` by :mod:`repro_torch.kernels.build`)
+on the current stream, or raises. Nothing falls back from the card to the
+plain version. Each wrapper counts its launches in a :class:`LaunchCounter`
+so a run can show that the main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+#: dtypes every kernel is instantiated for, with the C symbol suffix.
+KERNEL_DTYPES: Dict[torch.dtype, str] = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
+
+
+def assert_allclose_by_dtype(actual: object, desired: object, dtype: object) -> None:
+    """Tolerance ladder used by every kernel test (oracle comparisons)."""
+    if isinstance(dtype, torch.dtype):
+        dtype = torch.empty((), dtype=dtype).numpy().dtype
+    tol = {
+        "float64": 1e-12,
+        "float32": 1e-5,
+        "bfloat16": 2e-2,
+    }[np.dtype(dtype).name]
+
+    def host(a: object) -> np.ndarray:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return np.asarray(a, np.float64)
+
+    np.testing.assert_allclose(host(actual), host(desired), rtol=tol, atol=tol * 10)
+
+
+class LaunchCounter:
+    """A plain-int count of a wrapper's kernel launches (thread-safe).
+
+    Incremented where the wrapper launches its kernel and nowhere else, so
+    the plain CPU path and any comparison run outside a reset window leave
+    the main path's count unmixed.
+    """
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self._count = 0
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def add(self) -> None:
+        with self._lock:
+            self._count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._count = 0
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; anything else (mixed devices, another device type) raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands span several devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"operands on {dev}: the kernels take CUDA or CPU tensors")
+
+
+def check_kernel_operands(
+    name: str, tensors: Sequence[torch.Tensor], shapes: Sequence[Sequence[int]]
+) -> str:
+    """Validate CUDA operands for a launch; return the C symbol dtype suffix.
+
+    Every tensor must be contiguous, of one float dtype the kernel is built
+    for, and of the shape given beside it.
+    """
+    dtype = tensors[0].dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"{name}: kernel takes float32 or float64 operands, got {dtype}"
+        )
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operand {i} is {t.dtype}, operand 0 is {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: operand {i} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand {i} must be contiguous")
+    return KERNEL_DTYPES[dtype]
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def current_stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(name: str, code: int, lib: ctypes.CDLL) -> None:
+    """Raise when a C entry returned a non-zero ``cudaGetLastError()``."""
+    if code != 0:
+        msg = lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: cudaError {code} ({msg})")

@@ -1,0 +1,82 @@
+"""Stage 3 of the partition method: CUDA kernel wrapper.
+
+Replaces ``repro.kernels.partition_stage3`` (the ``_stage3_kernel`` Pallas
+body and the ``s_left`` shift of ``_stage3_impl`` / ``_stage3_impl_batched``).
+The kernel is ``csrc/partition_stage3.cu``: one thread per output element.
+Its plain version is the reference stage,
+:func:`repro_torch.core.tridiag.partition.partition_stage3`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
+from repro_torch.kernels import build, common
+
+STAGE3_LAUNCHES = common.LaunchCounter("partition_stage3")
+
+Tensor = torch.Tensor
+
+
+def _launch(y: Tensor, v: Tensor, w: Tensor, s: Tensor, left: Tensor) -> Tensor:
+    lead, p, mi = tuple(y.shape[:-2]), y.shape[-2], y.shape[-1]
+    m = mi + 1
+    suffix = common.check_kernel_operands(
+        "partition_stage3", (y, v, w, s, left), [y.shape] * 3 + [lead + (p,), lead]
+    )
+    lib = build.load("partition_stage3")
+    fn = getattr(lib, f"partition_stage3_{suffix}")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = torch.empty(lead + (p * m,), dtype=y.dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        code = fn(
+            *(common.ptr(t) for t in (y, v, w, s, left, x)),
+            math.prod(lead), p, m, common.current_stream(y.device),
+        )
+    common.raise_on_error("partition_stage3", code, lib)
+    STAGE3_LAUNCHES.add()
+    return x
+
+
+def _stage3(coeffs: PartitionCoeffs, s: Tensor, left: Optional[Tensor], ndim: int) -> Tensor:
+    y = coeffs.y
+    # Back substitution runs in the spikes' precision.
+    s = s.to(dtype=y.dtype)
+    if s.ndim != ndim or y.ndim != ndim + 1:
+        raise ValueError(
+            f"expected {ndim}-D interface values and {ndim + 1}-D spikes, got "
+            f"s {tuple(s.shape)} and y {tuple(y.shape)}"
+        )
+    if tuple(s.shape) != tuple(y.shape[:-1]):
+        raise ValueError(f"s has shape {tuple(s.shape)}, spikes {tuple(y.shape)}")
+    if left is None:
+        left = torch.zeros(s.shape[:-1], dtype=y.dtype, device=y.device)
+    left = left.to(dtype=y.dtype)
+    if common.on_cuda(coeffs.y, coeffs.v, coeffs.w, s, left):
+        return _launch(coeffs.y, coeffs.v, coeffs.w, s, left)
+    return partition_stage3(coeffs, s, left)
+
+
+def partition_stage3_cuda(
+    coeffs: PartitionCoeffs, s: Tensor, left: Optional[Tensor] = None
+) -> Tensor:
+    """Back-substitute (P,) interface values into (P, m-1) spikes → (P·m,).
+
+    ``left`` (a 0-d tensor) is s_{p-1} of the first block: zero by default,
+    the neighbouring chunk's last interface value for one chunk of a longer
+    system."""
+    return _stage3(coeffs, s, left, ndim=1)
+
+
+def partition_stage3_cuda_batched(
+    coeffs: PartitionCoeffs, s: Tensor, left: Optional[Tensor] = None
+) -> Tensor:
+    """Batched back substitution: (B, P, m-1) spikes, (B, P) s → (B, P·m);
+    ``left`` has shape (B,)."""
+    return _stage3(coeffs, s, left, ndim=2)
