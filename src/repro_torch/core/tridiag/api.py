@@ -15,10 +15,24 @@ stage backend, device, chunk policy, admission and plan-cache knobs) and a
     asynchronous serving: the request joins the session's admission queue and
     the future resolves when its batch dispatches.
 
-Every verb runs the fused system-major path of :mod:`.plan` on the
-session's device (``SolverConfig.device``, ``"cuda"`` by default). Verbs take
-numpy arrays or torch tensors and return numpy arrays. The caller's operands
-are never consumed or written to: there is no buffer donation.
+The three synchronous verbs have ``*_timed`` variants (``solve_timed``,
+``solve_batched_timed``, ``solve_many_timed``) that also return the
+:class:`~.plan.ChunkTiming` phase breakdown.
+
+How a verb *executes* is the config's ``dispatch``: ``"fused"`` runs the
+whole solve on the session's device with no host round trip
+(:class:`~.plan.FusedExecutor`); ``"staged"`` runs the paper's staged path,
+each chunk on its own CUDA stream with the reduced solve on the host
+(:class:`~.plan.PlanExecutor`); ``"auto"`` (default) is fused for the plain
+verbs and served batches and staged for the ``*_timed`` verbs, whose phase
+times only the staged path can observe. The operand ``layout``
+(``"system-major"``, ``"interleaved"`` or ``"auto"``, see :mod:`.layout`)
+is resolved per batch exactly as in the reference: ``"auto"`` interleaves
+fused flat batches of at least 32 systems whose ragged padding stays within
+1.5x. Everything runs on the session's device (``SolverConfig.device``,
+``"cuda"`` by default). Verbs take numpy arrays or torch tensors and return
+numpy arrays. The caller's operands are never consumed or written to: there
+is no buffer donation.
 
 ``submit`` is backed by a daemon worker thread driving the admission loop of
 :class:`SolveEngine`: a batch leaves the queue at ``max_batch`` requests or
@@ -29,8 +43,7 @@ dispatch failure fails exactly that batch's futures, and a worker that dies
 fails every outstanding future with :class:`WorkerDiedError`.
 
 Not in this port yet (``validate()`` raises ``NotImplementedError`` naming
-the ROADMAP item): the staged dispatch and its ``*_timed`` verbs, the
-interleaved layout, the device mesh, closed-loop autotune and
+the ROADMAP item): the device mesh, closed-loop autotune and
 predicted-latency admission.
 
 Usage::
@@ -60,11 +73,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.tridiag.batched import fuse_systems, split_systems
+from repro_torch.core.tridiag.layout import LAYOUTS
 from repro_torch.core.tridiag.plan import (
     BACKENDS,
     BackendLike,
     ChunkPolicy,
+    ChunkTiming,
     FusedExecutor,
+    PlanExecutor,
     SolvePlan,
     Sizes,
     build_plan,
@@ -95,8 +111,6 @@ __all__ = [
 
 #: Valid ``SolverConfig.dispatch`` values (as in the reference).
 DISPATCH_MODES = ("staged", "fused", "auto")
-#: Valid ``SolverConfig.layout`` values (as in the reference).
-LAYOUTS = ("system-major", "interleaved", "auto")
 #: Valid ``SolverConfig.autotune`` values (as in the reference).
 AUTOTUNE_MODES = ("off", "shadow", "live")
 
@@ -181,7 +195,7 @@ def _shape(a: Any) -> Tuple[int, ...]:
 def _not_ported(field_: str, value: object, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{field_}={value!r} is not in the port yet (ROADMAP: {item}); the port "
-        f"serves the fused system-major solve on one device"
+        f"serves the fused and staged solves, in either layout, on one device"
     )
 
 
@@ -203,10 +217,14 @@ class SolverConfig:
                    or a ``StageBackend``.
     ``device``     ``"cuda"`` (default) or ``"cpu"``; a session asking for
                    CUDA where there is none raises ``RuntimeError``.
-    ``dispatch``   ``"auto"`` and ``"fused"`` run the fused path;
-                   ``"staged"`` is not ported yet.
-    ``layout``     ``"auto"`` and ``"system-major"`` run system-major;
-                   ``"interleaved"`` is not ported yet.
+    ``dispatch``   ``"fused"`` (the whole solve on the device), ``"staged"``
+                   (per-chunk streams, host reduced solve, phase times) or
+                   ``"auto"``: fused for the plain verbs and served batches,
+                   staged for the ``*_timed`` verbs.
+    ``layout``     operand layout of the device stages: ``"system-major"``,
+                   ``"interleaved"`` (systems on the fastest axis; flat
+                   fused batches only) or ``"auto"``, which interleaves fused
+                   batches of B >= 32 systems with padding waste <= 1.5x.
     ``mesh``       None only (the mesh is not ported yet).
     ``policy`` / ``num_chunks``
                    a ``ChunkPolicy`` pricing each dispatch, or a fixed chunk
@@ -278,12 +296,8 @@ class SolverConfig:
             raise ValueError(
                 f"dispatch={self.dispatch!r}: must be one of {sorted(DISPATCH_MODES)}"
             )
-        if self.dispatch == "staged":
-            raise _not_ported("dispatch", self.dispatch, "Queue 1, PlanExecutor")
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout={self.layout!r}: must be one of {sorted(LAYOUTS)}")
-        if self.layout == "interleaved":
-            raise _not_ported("layout", self.layout, "Queue 1, interleaved layout")
         if self.mesh is not None:
             raise _not_ported("mesh", self.mesh, "Queue 1, multi-device")
         if self.policy is not None:
@@ -449,7 +463,7 @@ def _cast(a: Any, dtype: object) -> Any:
 
 # ------------------------------------------------------------------- engine --
 class SolveEngine:
-    """Admission-controlled fused solving of a request queue.
+    """Admission-controlled solving of a request queue.
 
     The serving engine behind :meth:`TridiagSession.submit`, driven by the
     session's worker thread. The engine is synchronous and not thread-safe;
@@ -470,7 +484,7 @@ class SolveEngine:
     def __init__(
         self,
         *,
-        executor: FusedExecutor,
+        executor: Union[FusedExecutor, PlanExecutor],
         on_result: Callable[[int, np.ndarray], None],
         on_error: Callable[[int, BaseException], None],
         m: int = 10,
@@ -682,14 +696,15 @@ class SolveEngine:
         try:
             sizes = tuple(r.size for r in reqs)
             dl, d, du, b, sizes = fuse_ragged(
-                [(r.dl, r.d, r.du, r.b) for r in reqs], device=self._executor.device
+                [(r.dl, r.d, r.du, r.b) for r in reqs], device=self._executor.operand_device
             )
             policy = self.policy  # one read: this batch is priced by one policy
             if policy is not None:
                 plan = build_plan(sizes, self.m, policy=policy)
             else:
                 plan = build_plan(sizes, self.m, num_chunks=self.pick_chunks_ragged(sizes))
-            x = self._executor.execute(plan, dl, d, du, b)
+            layout = self._executor.resolved_layout(plan)
+            x, _ = self._executor.execute(plan, dl, d, du, b)
             # copy: split_ragged returns views, which would pin the whole
             # fused solution for as long as any one result is retained
             solutions = [np.array(xi, dtype=self.dtype, copy=True) for xi in split_ragged(x, sizes)]
@@ -708,6 +723,7 @@ class SolveEngine:
                         "effective_size": effective_size(sizes),
                         "ragged": len(set(sizes)) > 1,
                         "num_chunks": plan.num_chunks,
+                        "layout": layout,
                         "latency_ms": dt * 1e3,
                         "mean_wait_ms": float(np.mean(waits_ms)),
                         "max_wait_ms": float(np.max(waits_ms)),
@@ -740,7 +756,8 @@ class TridiagSession:
     """The facade: one configured object serving every batch shape.
 
     Synchronous verbs (:meth:`solve`, :meth:`solve_batched`,
-    :meth:`solve_many`) run on the caller's thread. :meth:`submit` is
+    :meth:`solve_many` and their ``*_timed`` variants) run on the caller's
+    thread. :meth:`submit` is
     asynchronous: a daemon worker thread, started by the first submit,
     drives the admission loop. :meth:`close` drains the queue (every
     outstanding future completes) and stops the worker; the session is a
@@ -754,7 +771,8 @@ class TridiagSession:
         self.config = (SolverConfig() if config is None else config).validate()
         self.device = resolve_device(self.config.device)
         self.backend = resolve_backend(self.config.backend, self.device)
-        self._fused = FusedExecutor(self.backend, device=self.device)
+        self._fused = FusedExecutor(self.backend, device=self.device, layout=self.config.layout)
+        self._staged = PlanExecutor(self.backend, device=self.device, layout=self.config.layout)
         if self.config.plan_cache_capacity is not None:
             set_plan_cache_capacity(self.config.plan_cache_capacity)
         # RLock-backed so _resolve_future can take it from paths that
@@ -765,7 +783,7 @@ class TridiagSession:
         self._closed = False
         self._worker_error: Optional[BaseException] = None
         self._engine = SolveEngine(
-            executor=self._fused,
+            executor=self._staged if self.config.dispatch == "staged" else self._fused,
             on_result=lambda rid, x: self._resolve_future(rid, value=x),
             on_error=lambda rid, e: self._resolve_future(rid, error=e),
             m=self.config.m,
@@ -791,16 +809,44 @@ class TridiagSession:
             return x
         return np.asarray(x, dtype=self.config.dtype)
 
+    def _pick_executor(self, timed: bool) -> Union[FusedExecutor, PlanExecutor]:
+        """``dispatch`` routing: "staged" and "fused" hold for every verb;
+        "auto" is fused for the plain verbs and staged for the ``*_timed``
+        verbs, whose per-phase times only the staged path can observe."""
+        mode = self.config.dispatch
+        if mode == "fused" or (mode == "auto" and not timed):
+            return self._fused
+        return self._staged
+
     # -- synchronous verbs ---------------------------------------------------
     def solve(self, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
         """Solve one system (1-D diagonals; leading batch dims pass through).
         The operands are left as they were (no donation)."""
+        return self._solve(dl, d, du, b, timed=False)[0]
+
+    def solve_timed(self, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
+        """:meth:`solve` with its :class:`~.plan.ChunkTiming`."""
+        return self._solve(dl, d, du, b, timed=True)
+
+    def _solve(self, dl: Any, d: Any, du: Any, b: Any, *, timed: bool) -> Tuple[np.ndarray, ChunkTiming]:
         dl, d, du, b = self._cast(dl, d, du, b)
         n = int(_shape(d)[-1])
-        return self._cast_out(self._fused.execute(self.plan_for(n), dl, d, du, b))
+        x, timing = self._pick_executor(timed).execute(self.plan_for(n), dl, d, du, b)
+        return self._cast_out(x), timing
 
     def solve_batched(self, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
         """Solve B same-size systems given as (B, n) operands."""
+        return self._solve_batched(dl, d, du, b, timed=False)[0]
+
+    def solve_batched_timed(
+        self, dl: Any, d: Any, du: Any, b: Any
+    ) -> Tuple[np.ndarray, ChunkTiming]:
+        """:meth:`solve_batched` with its :class:`~.plan.ChunkTiming`."""
+        return self._solve_batched(dl, d, du, b, timed=True)
+
+    def _solve_batched(
+        self, dl: Any, d: Any, du: Any, b: Any, *, timed: bool
+    ) -> Tuple[np.ndarray, ChunkTiming]:
         dl, d, du, b = self._cast(dl, d, du, b)
         shape = _shape(d)
         if len(shape) != 2:
@@ -809,17 +855,28 @@ class TridiagSession:
                 f"use solve() for one system or solve_many() for mixed sizes"
             )
         batch, n = shape
-        fused = fuse_systems(dl, d, du, b, device=self.device)
-        x = self._fused.execute(self.plan_for((n,) * batch), *fused)
-        return split_systems(self._cast_out(x), batch)
+        executor = self._pick_executor(timed)
+        fused = fuse_systems(dl, d, du, b, device=executor.operand_device)
+        x, timing = executor.execute(self.plan_for((n,) * batch), *fused)
+        return split_systems(self._cast_out(x), batch), timing
 
     def solve_many(self, systems: Sequence[System]) -> List[np.ndarray]:
         """Solve a ragged list of ``(dl, d, du, b)`` systems in one dispatch."""
+        return self._solve_many(systems, timed=False)[0]
+
+    def solve_many_timed(self, systems: Sequence[System]) -> Tuple[List[np.ndarray], ChunkTiming]:
+        """:meth:`solve_many` with its :class:`~.plan.ChunkTiming`."""
+        return self._solve_many(systems, timed=True)
+
+    def _solve_many(
+        self, systems: Sequence[System], *, timed: bool
+    ) -> Tuple[List[np.ndarray], ChunkTiming]:
         if self.config.dtype is not None:
             systems = [self._cast(*s) for s in systems]  # type: ignore[misc]
-        dl, d, du, b, sizes = fuse_ragged(systems, device=self.device)
-        x = self._fused.execute(self.plan_for(sizes), dl, d, du, b)
-        return split_ragged(self._cast_out(x), sizes)
+        executor = self._pick_executor(timed)
+        dl, d, du, b, sizes = fuse_ragged(systems, device=executor.operand_device)
+        x, timing = executor.execute(self.plan_for(sizes), dl, d, du, b)
+        return split_ragged(self._cast_out(x), sizes), timing
 
     # -- asynchronous serving ------------------------------------------------
     def submit(self, req: SolveRequest) -> SolveFuture:

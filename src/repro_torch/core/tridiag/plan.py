@@ -1,24 +1,34 @@
 """Plan/execute layer of the port: one execution path for every solve.
 
-The counterpart of ``repro.core.tridiag.plan`` for the single-device,
-system-major fused solve. A :class:`SolvePlan` is an immutable layout
-decision: which systems are fused onto the block axis, where the chunk
-("stream") boundaries fall, which halo block each chunk carries, and where
-each system's solution lives in the fused vector. The chunk count is given
-explicitly or priced by a :class:`ChunkPolicy` (:func:`price_chunks` is the
-one pricing rule, shared with the serving path).
+The counterpart of ``repro.core.tridiag.plan`` on one device. A
+:class:`SolvePlan` is an immutable layout decision: which systems are fused
+onto the block axis, where the chunk ("stream") boundaries fall, which halo
+block each chunk carries, and where each system's solution lives in the
+fused vector. The chunk count is given explicitly or priced by a
+:class:`ChunkPolicy` (:func:`price_chunks` is the one pricing rule, shared
+with the serving path).
 
-:class:`FusedExecutor` runs a plan on one device with no host round-trip
-between the stages: per chunk, Stage 1 on the chunk plus its halo block;
-one reduced (Stage-2) solve of all chunks' reduced rows on the device; per
-chunk, Stage 3 with the left neighbour's interface value spliced in. That is
-one Stage-1 launch and one Stage-3 launch per chunk on the current stream,
-so the heuristic's chunk count reaches the card.
+Two executors run a plan, and both return the solution with a
+:class:`ChunkTiming`:
+
+- :class:`FusedExecutor` runs it on one device with no host round trip
+  between the stages. System-major: per chunk, Stage 1 on the chunk plus its
+  halo block; one reduced (Stage-2) solve of all chunks' reduced rows on the
+  device; per chunk, Stage 3 with the left neighbour's interface value
+  passed in. Interleaved (:mod:`.layout`): interleave, wide Stage 1, B
+  parallel reduced solves, wide Stage 3, deinterleave; the plan's chunks do
+  not apply there. Only the total time is observable.
+- :class:`PlanExecutor` is the staged path of the paper: each chunk's rows
+  go host→device and through Stage 1 on the chunk's own CUDA stream without
+  blocking, the reduced rows come back to the host, which solves the reduced
+  system in fp64, and Stage 3 runs per chunk on its stream again. Its
+  :class:`ChunkTiming` carries the per-phase times of the Eq. 5 model.
 
 *How* the stages run is a :class:`StageBackend`: :class:`ReferenceBackend`
-(the plain PyTorch stages of :mod:`.partition`) or :class:`CudaBackend` (the
-hand-written kernels of :mod:`repro_torch.kernels`). ``"auto"`` resolves to
-the kernels on a CUDA device and to the reference stages on the CPU.
+(the plain PyTorch stages of :mod:`.partition` and :mod:`.layout`) or
+:class:`CudaBackend` (the hand-written kernels of :mod:`repro_torch.kernels`).
+``"auto"`` resolves to the kernels on a CUDA device and to the reference
+stages on the CPU.
 
 Plans are memoised by their ``(sizes, m, num_chunks)`` signature in a bounded,
 lock-protected LRU: a session solves from its worker thread and its caller's
@@ -27,7 +37,9 @@ thread at once, and serving traffic repeats batch compositions.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from functools import partial
@@ -36,13 +48,35 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.tridiag import layout as layout_mod
 from repro_torch.core.tridiag import partition
 from repro_torch.core.tridiag.batched import as_tensor
+from repro_torch.core.tridiag.layout import resolve_layout
+from repro_torch.core.tridiag.reference import thomas_numpy
 from repro_torch.core.tridiag.thomas import thomas
 from repro_torch.device import resolve_device
 
 Sizes = Union[int, Sequence[int]]
 Tensor = torch.Tensor
+
+
+@dataclass
+class ChunkTiming:
+    """Host-clock phase breakdown of one planned solve (milliseconds).
+
+    The staged executor fills every phase; the fused one only
+    ``t_total_ms`` (its stages run with no host round trip between them)."""
+
+    num_chunks: int
+    t_stage1_ms: float
+    t_stage2_ms: float
+    t_stage3_ms: float
+    t_total_ms: float
+    n: int = 0
+
+    @property
+    def phases(self) -> Tuple[float, float, float]:
+        return (self.t_stage1_ms, self.t_stage2_ms, self.t_stage3_ms)
 
 
 def effective_size(sizes: Sizes) -> int:
@@ -60,8 +94,15 @@ class StageBackend:
     ``make_stage1(m)`` returns ``(dl, d, du, b) -> PartitionCoeffs``;
     ``make_stage3()`` returns ``(coeffs, s, left) -> x``, where ``left`` is
     s_{p-1} of each system's first block; ``make_reduced_solve()`` returns
-    the Stage-2 solver ``(red_dl, red_d, red_du, red_b) -> s``. All take
-    operands with an optional leading batch axis.
+    the device Stage-2 solver ``(red_dl, red_d, red_du, red_b) -> s``. All
+    take operands with an optional leading batch axis.
+
+    The ``make_wide_*`` trio are their counterparts on the interleaved
+    layout (:mod:`.layout`): wide Stage 1 takes (P, m, B) diagonals and
+    returns spikes (P, m-1, B) and reduced rows (P, B); the wide reduced
+    solve runs B independent solves on (P, B) rows; wide Stage 3 returns the
+    (P, m, B) solution. The defaults are the plain wide stages, so every
+    backend serves ``layout="interleaved"``.
     """
 
     name = "abstract"
@@ -74,6 +115,15 @@ class StageBackend:
 
     def make_reduced_solve(self) -> Callable[..., Tensor]:
         return thomas
+
+    def make_wide_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
+        return partial(layout_mod.partition_stage1_wide, m=m)
+
+    def make_wide_stage3(self) -> Callable[..., Tensor]:
+        return layout_mod.partition_stage3_wide
+
+    def make_wide_reduced_solve(self) -> Callable[..., Tensor]:
+        return layout_mod.thomas_wide
 
 
 @dataclass(frozen=True)
@@ -139,6 +189,21 @@ class CudaBackend(StageBackend):
         from repro_torch.kernels.thomas.ops import thomas_cuda
 
         return thomas_cuda
+
+    def make_wide_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
+        from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_wide
+
+        return partial(partition_stage1_cuda_wide, m=m)
+
+    def make_wide_stage3(self) -> Callable[..., Tensor]:
+        from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_wide
+
+        return partition_stage3_cuda_wide
+
+    def make_wide_reduced_solve(self) -> Callable[..., Tensor]:
+        from repro_torch.kernels.thomas.ops import thomas_cuda_wide
+
+        return thomas_cuda_wide
 
 
 @dataclass(frozen=True)
@@ -379,6 +444,9 @@ def build_plan(
 
 
 # -------------------------------------------------------- the fused executor --
+_RED_FIELDS = ("red_dl", "red_d", "red_du", "red_b")
+
+
 def _trim_halo(c: partition.PartitionCoeffs, nb: int) -> partition.PartitionCoeffs:
     """Drop the halo block's rows: its reduced row belongs to the next chunk
     (which recomputes it as an owner), and its spikes only exist to close the
@@ -437,7 +505,7 @@ def _fused(plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Te
         torch.cat([getattr(c, f) for c in coeffs], dim=-1)
         if len(coeffs) > 1
         else getattr(coeffs[0], f).contiguous()
-        for f in ("red_dl", "red_d", "red_du", "red_b")
+        for f in _RED_FIELDS
     ]
     s = reduced_solve(*red)
     outs = []
@@ -445,6 +513,43 @@ def _fused(plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Te
         s_left_edge = torch.zeros_like(s[..., 0]) if lo == 0 else s[..., lo - 1]
         outs.append(_stage3_with_ghost(stage3, c, s[..., lo:hi], s_left_edge))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def _fused_interleaved(
+    plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Tensor, b: Tensor
+) -> Tensor:
+    """The interleaved three-stage solve of ``plan`` on the operands' device:
+    interleave, wide Stage 1, wide reduced solve, wide Stage 3, deinterleave.
+    The plan's chunks do not apply: the B systems are the parallel axis."""
+    m, sizes = plan.m, plan.sizes
+    c = backend.make_wide_stage1(m)(*layout_mod.interleave_operands(dl, d, du, b, sizes, m))
+    s = backend.make_wide_reduced_solve()(c.red_dl, c.red_d, c.red_du, c.red_b)
+    return layout_mod.deinterleave(backend.make_wide_stage3()(c, s), sizes, m)
+
+
+def _check_layout(layout: str) -> str:
+    if layout not in layout_mod.LAYOUTS:
+        raise ValueError(f"layout must be one of {layout_mod.LAYOUTS}, got {layout!r}")
+    return layout
+
+
+def _promote(plan: SolvePlan, ops: List[Tensor]) -> List[Tensor]:
+    """The four operands in one floating dtype (torch's promotion rules),
+    checked for equal shapes and for the plan's row count."""
+    dtype = ops[0].dtype
+    for a in ops[1:]:
+        dtype = torch.promote_types(dtype, a.dtype)
+    if not dtype.is_floating_point:
+        raise TypeError(f"the solver runs in floating point, got {dtype} operands")
+    ops = [a.to(dtype) for a in ops]
+    shape = ops[1].shape
+    for a in ops:
+        if a.shape != shape:
+            raise ValueError(f"operand shapes differ: {tuple(a.shape)} vs {tuple(shape)}")
+    n = int(shape[-1])
+    if n != plan.total_size:
+        raise ValueError(f"operands have {n} rows but the plan lays out {plan.total_size}")
+    return ops
 
 
 class FusedExecutor:
@@ -456,27 +561,228 @@ class FusedExecutor:
     with mixed inputs promoted by torch's rules. The caller's arrays and
     tensors are never written to or consumed (no buffer donation). The
     solution comes back as a numpy array; nothing crosses to the host before
-    that.
+    that. The :class:`ChunkTiming` carries only the total time.
+
+    ``layout`` ("system-major" | "interleaved" | "auto") picks the operand
+    layout per plan through :func:`~.layout.resolve_layout`; "auto"
+    interleaves flat fused batches of at least
+    ``layout.AUTO_INTERLEAVE_MIN_BATCH`` systems.
     """
 
-    def __init__(self, backend: BackendLike = "auto", *, device: Union[str, torch.device] = "cuda") -> None:
+    def __init__(
+        self,
+        backend: BackendLike = "auto",
+        *,
+        device: Union[str, torch.device] = "cuda",
+        layout: str = "auto",
+    ) -> None:
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
+        self.layout = _check_layout(layout)
 
-    def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
-        ops = [as_tensor(a, self.device) for a in (dl, d, du, b)]
-        dtype = ops[0].dtype
-        for a in ops[1:]:
-            dtype = torch.promote_types(dtype, a.dtype)
-        if not dtype.is_floating_point:
-            raise TypeError(f"the solver runs in floating point, got {dtype} operands")
-        ops = [a.to(dtype) for a in ops]
-        shape = ops[1].shape
-        for a in ops:
-            if a.shape != shape:
-                raise ValueError(f"operand shapes differ: {tuple(a.shape)} vs {tuple(shape)}")
-        n = int(shape[-1])
-        if n != plan.total_size:
-            raise ValueError(f"operands have {n} rows but the plan lays out {plan.total_size}")
-        x = _fused(plan, self.backend, *ops)
-        return x.cpu().numpy()
+    @property
+    def operand_device(self) -> Optional[torch.device]:
+        """Where a caller should fuse operands for this executor: its device."""
+        return self.device
+
+    def resolved_layout(self, plan: SolvePlan, lead_ndim: int = 0) -> str:
+        """The concrete layout this executor runs ``plan`` in."""
+        return resolve_layout(self.layout, plan.sizes, plan.m, fused=True, lead_ndim=lead_ndim)
+
+    def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
+        t0 = time.perf_counter()
+        ops = _promote(plan, [as_tensor(a, self.device) for a in (dl, d, du, b)])
+        if self.resolved_layout(plan, ops[1].ndim - 1) == "interleaved":
+            x = _fused_interleaved(plan, self.backend, *ops)
+        else:
+            x = _fused(plan, self.backend, *ops)
+        out = x.cpu().numpy()
+        return out, ChunkTiming(
+            num_chunks=plan.num_chunks,
+            t_stage1_ms=0.0,
+            t_stage2_ms=0.0,
+            t_stage3_ms=0.0,
+            t_total_ms=(time.perf_counter() - t0) * 1e3,
+            n=plan.total_size,
+        )
+
+
+class PlanExecutor:
+    """The staged path of the paper: per-chunk device stages on their own
+    CUDA streams, the reduced solve on the host in fp64, and per-phase
+    host-clock times in the returned :class:`ChunkTiming`.
+
+    System-major (the default, and what ``"auto"`` resolves to here): for
+    each chunk of the plan, in order and without blocking, on the chunk's own
+    ``torch.cuda.Stream``: its rows plus one halo block go host→device
+    through a pinned staging buffer, Stage 1 runs, and its reduced rows go
+    device→host into a pinned buffer, with an event recorded. So chunk k's
+    copy overlaps chunk k-1's kernels. The host waits on the events, solves
+    the reduced system with ``thomas_numpy`` in fp64, and each chunk runs
+    Stage 3 on its stream with its left neighbour's interface value passed
+    in; the solution comes back through a pinned buffer. Operands that are
+    already CUDA tensors are sliced in place, with no host copy.
+
+    Interleaved (an explicit ``layout="interleaved"``): one wide Stage 1 on
+    the device, the (P, B) reduced rows to the host, ``thomas_numpy`` on the
+    transposed rows, one wide Stage 3 and the deinterleave. The plan's
+    chunks do not apply.
+
+    On ``device="cpu"`` the same code runs without streams or pinned memory.
+    The solution always comes back in the operands' dtype: Stage 3 casts the
+    fp64 interface values to the spikes' precision.
+    """
+
+    def __init__(
+        self,
+        backend: BackendLike = "auto",
+        *,
+        layout: str = "auto",
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        self.backend = resolve_backend(backend, self.device)
+        self.layout = _check_layout(layout)
+
+    @property
+    def operand_device(self) -> Optional[torch.device]:
+        """Where a caller should fuse operands for this executor: None, where
+        they are. Host operands are then copied chunk by chunk on the chunks'
+        streams, and device operands are sliced in place."""
+        return None
+
+    def resolved_layout(self, plan: SolvePlan, lead_ndim: int = 0) -> str:
+        """The concrete layout this executor runs ``plan`` in."""
+        return resolve_layout(self.layout, plan.sizes, plan.m, fused=False, lead_ndim=lead_ndim)
+
+    def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
+        # Host operands stay on the host for the chunks' staged copies; any
+        # device operand is taken on this executor's device.
+        ops = [as_tensor(a) for a in (dl, d, du, b)]
+        ops = _promote(plan, [a if a.device.type == "cpu" else a.to(self.device) for a in ops])
+        if self.resolved_layout(plan, ops[1].ndim - 1) == "interleaved":
+            return self._execute_interleaved(plan, ops)
+        if ops[1].ndim > 2:
+            lead = ops[1].shape[:-1]
+            x, timing = self._execute_system_major(plan, [a.reshape(-1, a.shape[-1]) for a in ops])
+            return x.reshape(*lead, -1), timing
+        return self._execute_system_major(plan, ops)
+
+    def _execute_system_major(self, plan: SolvePlan, ops: List[Tensor]) -> Tuple[np.ndarray, ChunkTiming]:
+        m = plan.m
+        stage1 = self.backend.make_stage1(m)
+        stage3 = self.backend.make_stage3()
+        cuda = self.device.type == "cuda"
+        staged = cuda and ops[1].device.type == "cpu"  # host operands copied per chunk
+        dtype, lead, p = ops[1].dtype, tuple(ops[1].shape[:-1]), plan.num_blocks
+        if cuda:
+            caller = torch.cuda.current_stream(self.device)
+            streams: List[Any] = [torch.cuda.Stream(self.device) for _ in plan.chunk_bounds]
+            for st in streams:
+                st.wait_stream(caller)  # device operands may still be in the making
+                if not staged:
+                    for a in ops:
+                        a.record_stream(st)
+        else:
+            streams = [None] * plan.num_chunks
+
+        def on(st: Any) -> Any:
+            return torch.cuda.stream(st) if st is not None else contextlib.nullcontext()
+
+        def host_buffer(*shape: int) -> Tensor:
+            return torch.empty(shape, dtype=dtype, pin_memory=cuda)
+
+        # Every pinned buffer lives until the call returns, so none is reused
+        # while a copy from or to it may be in flight.
+        keep: List[Tensor] = []
+        events: List[Any] = [None] * plan.num_chunks
+
+        def record(k: int) -> None:
+            if cuda:
+                events[k] = torch.cuda.Event()
+                events[k].record(streams[k])
+
+        def wait_all() -> None:
+            for e in events:
+                if e is not None:
+                    e.synchronize()
+
+        t0 = time.perf_counter()
+        # ---- Stage 1, per chunk on its stream, without blocking. Each chunk
+        # carries one halo block: its last reduced row needs the next block's
+        # spikes; the halo's own reduced row belongs to the next chunk.
+        red = host_buffer(4, *lead, p)
+        coeffs: List[partition.PartitionCoeffs] = []
+        for k, ((lo, hi), (_, hi_halo)) in enumerate(zip(plan.chunk_bounds, plan.halo_bounds)):
+            with on(streams[k]):
+                if staged:
+                    buf = host_buffer(4, *lead, (hi_halo - lo) * m)
+                    for j, a in enumerate(ops):
+                        buf[j].copy_(a[..., lo * m : hi_halo * m])
+                    keep.append(buf)
+                    chunk = list(buf.to(self.device, non_blocking=True).unbind(0))
+                else:
+                    chunk = [a[..., lo * m : hi_halo * m].contiguous() for a in ops]
+                c = _trim_halo(stage1(*chunk), hi - lo)
+                for j, f in enumerate(_RED_FIELDS):
+                    red[j][..., lo:hi].copy_(getattr(c, f), non_blocking=True)
+                record(k)
+            coeffs.append(c)
+        wait_all()
+        t1 = time.perf_counter()
+
+        # ---- Stage 2: the reduced solve on the host, in fp64 (the paper's
+        # CPU stage).
+        s_host = host_buffer(*lead, p)
+        s_host.copy_(torch.from_numpy(thomas_numpy(*red.numpy())))
+        t2 = time.perf_counter()
+
+        # ---- Stage 3, per chunk on its stream: chunk k needs s_{lo-1}..s_{hi-1}.
+        x_host = host_buffer(*lead, plan.total_size)
+        for k, ((lo, hi), c) in enumerate(zip(plan.chunk_bounds, coeffs)):
+            with on(streams[k]):
+                first = max(lo - 1, 0)
+                seg = s_host[..., first:hi].to(self.device, non_blocking=True)
+                left = seg[..., 0] if lo > 0 else seg.new_zeros(lead)
+                x = _stage3_with_ghost(stage3, c, seg[..., lo - first :], left)
+                x_host[..., lo * m : hi * m].copy_(x, non_blocking=True)
+                record(k)
+        wait_all()
+        if cuda:
+            for st in streams:
+                caller.wait_stream(st)
+        out = x_host.numpy().copy() if cuda else x_host.numpy()
+        t3 = time.perf_counter()
+        return out, ChunkTiming(
+            num_chunks=plan.num_chunks,
+            t_stage1_ms=(t1 - t0) * 1e3,
+            t_stage2_ms=(t2 - t1) * 1e3,
+            t_stage3_ms=(t3 - t2) * 1e3,
+            t_total_ms=(t3 - t0) * 1e3,
+            n=plan.total_size,
+        )
+
+    def _execute_interleaved(self, plan: SolvePlan, ops: List[Tensor]) -> Tuple[np.ndarray, ChunkTiming]:
+        m, sizes = plan.m, plan.sizes
+        t0 = time.perf_counter()
+        wide = layout_mod.interleave_operands(*(a.to(self.device) for a in ops), sizes, m)
+        c = self.backend.make_wide_stage1(m)(*wide)
+        red = [getattr(c, f).cpu().numpy() for f in _RED_FIELDS]  # (P, B) each
+        t1 = time.perf_counter()
+
+        # ---- Stage 2 on the host: B independent fp64 solves of P rows.
+        s = thomas_numpy(*(r.T for r in red)).T
+        t2 = time.perf_counter()
+
+        s_dev = torch.from_numpy(np.ascontiguousarray(s)).to(device=self.device, dtype=c.y.dtype)
+        xw = self.backend.make_wide_stage3()(c, s_dev)
+        out = layout_mod.deinterleave(xw, sizes, m).cpu().numpy()
+        t3 = time.perf_counter()
+        return out, ChunkTiming(
+            num_chunks=plan.num_chunks,
+            t_stage1_ms=(t1 - t0) * 1e3,
+            t_stage2_ms=(t2 - t1) * 1e3,
+            t_stage3_ms=(t3 - t2) * 1e3,
+            t_total_ms=(t3 - t0) * 1e3,
+            n=plan.total_size,
+        )

@@ -9,12 +9,20 @@ them all, so a run can zero them and read which kernels its main path used.
 from typing import Dict
 
 from repro_torch.kernels.common import LaunchCounter
-from repro_torch.kernels.partition_stage1.ops import STAGE1_LAUNCHES
-from repro_torch.kernels.partition_stage3.ops import STAGE3_LAUNCHES
-from repro_torch.kernels.thomas.ops import THOMAS_LAUNCHES
+from repro_torch.kernels.partition_stage1.ops import STAGE1_LAUNCHES, STAGE1_WIDE_LAUNCHES
+from repro_torch.kernels.partition_stage3.ops import STAGE3_LAUNCHES, STAGE3_WIDE_LAUNCHES
+from repro_torch.kernels.thomas.ops import THOMAS_LAUNCHES, THOMAS_WIDE_LAUNCHES
 
 LAUNCH_COUNTERS: Dict[str, LaunchCounter] = {
-    c.name: c for c in (STAGE1_LAUNCHES, THOMAS_LAUNCHES, STAGE3_LAUNCHES)
+    c.name: c
+    for c in (
+        STAGE1_LAUNCHES,
+        THOMAS_LAUNCHES,
+        STAGE3_LAUNCHES,
+        STAGE1_WIDE_LAUNCHES,
+        THOMAS_WIDE_LAUNCHES,
+        STAGE3_WIDE_LAUNCHES,
+    )
 }
 
 __all__ = ["LAUNCH_COUNTERS"]

@@ -26,7 +26,13 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 #: One shared library per source, named after it.
-SOURCES: Tuple[str, ...] = ("partition_stage1", "thomas", "partition_stage3")
+SOURCES: Tuple[str, ...] = (
+    "partition_stage1",
+    "thomas",
+    "partition_stage3",
+    "partition_stage1_wide",
+    "partition_stage3_wide",
+)
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS: Tuple[str, ...] = (

@@ -1,3 +1,8 @@
-from repro_torch.kernels.thomas.ops import THOMAS_LAUNCHES, thomas_cuda
+from repro_torch.kernels.thomas.ops import (
+    THOMAS_LAUNCHES,
+    THOMAS_WIDE_LAUNCHES,
+    thomas_cuda,
+    thomas_cuda_wide,
+)
 
-__all__ = ["THOMAS_LAUNCHES", "thomas_cuda"]
+__all__ = ["THOMAS_LAUNCHES", "THOMAS_WIDE_LAUNCHES", "thomas_cuda", "thomas_cuda_wide"]

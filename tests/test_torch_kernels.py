@@ -145,12 +145,25 @@ def test_stage3_left_edge_is_the_neighbours_interface_value():
 
 # ------------------------------------------------------- wrapper contract --
 def test_cpu_tensors_take_the_plain_path_without_counting():
+    from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_wide
+    from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_wide
+    from repro_torch.kernels.thomas.ops import thomas_cuda_wide
+
     before = {k: c.count for k, c in LAUNCH_COUNTERS.items()}
     dl, d, du, b, _ = (torch.from_numpy(a) for a in make_diag_dominant_system(40, seed=1))
     c = partition_stage1_cuda(dl, d, du, b, m=10)
     partition_stage3_cuda(c, thomas_cuda(c.red_dl, c.red_d, c.red_du, c.red_b))
+    cw = partition_stage1_cuda_wide(*(a.reshape(2, 10, 2) for a in (dl, d, du, b)), m=10)
+    partition_stage3_cuda_wide(cw, thomas_cuda_wide(cw.red_dl, cw.red_d, cw.red_du, cw.red_b))
     assert {k: c.count for k, c in LAUNCH_COUNTERS.items()} == before
-    assert set(LAUNCH_COUNTERS) == {"partition_stage1", "thomas", "partition_stage3"}
+    assert set(LAUNCH_COUNTERS) == {
+        "partition_stage1",
+        "thomas",
+        "partition_stage3",
+        "partition_stage1_wide",
+        "thomas_wide",
+        "partition_stage3_wide",
+    }
 
 
 @pytest.mark.parametrize(

@@ -210,7 +210,7 @@ def test_fused_executor_matches_oracle(backend, k):
     systems = [make_diag_dominant_system(n, seed=n) for n in sizes]
     dl, d, du, b, got_sizes = fuse_ragged([s[:4] for s in systems])
     plan = tplan.build_plan(got_sizes, 10, num_chunks=k)
-    x = tplan.FusedExecutor(backend, device="cpu").execute(plan, dl, d, du, b)
+    x, _ = tplan.FusedExecutor(backend, device="cpu").execute(plan, dl, d, du, b)
     assert isinstance(x, np.ndarray) and x.dtype == np.float64
     for xi, s in zip(split_ragged(x, sizes), systems):
         assert_allclose_by_dtype(xi, thomas_numpy(*s[:4]), np.float64)
@@ -219,9 +219,9 @@ def test_fused_executor_matches_oracle(backend, k):
 def test_chunk_count_does_not_change_the_answer_bitwise():
     dl, d, du, b, _ = make_diag_dominant_system(400, seed=9)
     ex = tplan.FusedExecutor("cuda", device="cpu")
-    one = ex.execute(tplan.build_plan(400, 10, num_chunks=1), dl, d, du, b)
+    one, _ = ex.execute(tplan.build_plan(400, 10, num_chunks=1), dl, d, du, b)
     for k in (2, 8):
-        np.testing.assert_array_equal(ex.execute(tplan.build_plan(400, 10, num_chunks=k), dl, d, du, b), one)
+        np.testing.assert_array_equal(ex.execute(tplan.build_plan(400, 10, num_chunks=k), dl, d, du, b)[0], one)
 
 
 def test_resolve_backend():

@@ -150,8 +150,6 @@ def test_policy_session_matches_fixed_pick():
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("dispatch", "staged"),
-        ("layout", "interleaved"),
         ("mesh", 2),
         ("autotune", "shadow"),
         ("max_predicted_ms", 5.0),
@@ -320,13 +318,17 @@ def test_concurrent_submitters_all_resolve():
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_auto_layout_matches_jax_interleaved(dtype):
-    """At B >= the reference's interleave threshold, the reference's
-    layout="auto" interleaves; the port's runs system-major. Both agree with
-    an explicit interleaved JAX session at the tolerance ladder."""
+    """At B >= the interleave threshold the port's layout="auto" resolves to
+    interleaved for solve_batched, as the reference's does, and agrees with
+    an explicitly interleaved JAX session at the tolerance ladder."""
     from repro.core.tridiag.layout import AUTO_INTERLEAVE_MIN_BATCH
+    from repro.core.tridiag.layout import resolve_layout as jax_resolve_layout
 
     ops = make_diag_dominant_system(100, seed=21, batch=(AUTO_INTERLEAVE_MIN_BATCH,), dtype=dtype)[:4]
     jcfg = japi.SolverConfig(m=10, num_chunks=2, layout="interleaved")
     want = japi.TridiagSession(jcfg).solve_batched(*ops)
     with _session(2) as s:
+        plan = s.plan_for((100,) * AUTO_INTERLEAVE_MIN_BATCH)
+        want_layout = jax_resolve_layout("auto", plan.sizes, 10, fused=True)
+        assert s._fused.resolved_layout(plan) == want_layout == "interleaved"
         _check(s.solve_batched(*ops), want, dtype)
