@@ -1,21 +1,23 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase (what CI on the card runs)
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,lm
 
 Phases:
 
-1. ``build``: compile the five CUDA sources in ``src/repro_torch/csrc``
+1. ``build``: compile the seven CUDA sources in ``src/repro_torch/csrc``
    (one nvcc each, all at once) and print ptxas's register report.
 2. ``kernels``: each kernel against its plain PyTorch version (the
    reference stage) on the card, in fp64 and fp32, at shapes the main path
    gives it: the system-major and batched Stage 1/Stage 3, the wide
-   (interleaved) Stage 1/Stage 3, ragged identity padding included, and
-   the Thomas kernel on both routes; max error against the tolerance
-   ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events, the plain
-   version's time and the bound (bytes over 3.35 TB/s or operations over
-   the peak rate, whichever is larger); for Thomas also the dependent-chain
-   floor, 2n steps at the per-step time of the B = 1, n = 4096 row.
+   (interleaved) Stage 1/Stage 3, ragged identity padding included, the
+   Thomas kernel on both routes, the tridiagonal matvec, and the SSD
+   intra-chunk stage at mamba2-1.3b's widths; max error against the
+   tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events,
+   the plain version's time and the bound (bytes over 3.35 TB/s or
+   operations over the peak rate, whichever is larger); for Thomas also the
+   dependent-chain floor, 2n steps at the per-step time of the B = 1,
+   n = 4096 row; for the matvec the CSR sparse product's time.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -30,11 +32,22 @@ Phases:
    and the interleaved answer against the system-major one. Staged:
    ``solve_timed`` at n = 1e7 with one CUDA stream per chunk, twice, bit
    for bit, and ``solve_batched_timed`` on the staged interleaved branch.
-   Every result is checked against ``x_true``; every kernel's launch
-   counter must rise.
+   Every result is checked against ``x_true``, and the n = 1e7 solve's
+   residual max|A x - b| is taken with the matvec kernel; every solver
+   kernel's launch counter must rise.
 4. ``breakdown``: where the time of one n = 1e7 fp64 solve and of one
    interleaved ``solve_batched`` of 1024 x 10,000 fp64 goes, stage by
    stage, from CUDA events and the host clock around the copies.
+5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
+   ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
+   (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
+   and 4 greedy decode steps on the card (the SSD kernel) against the same
+   weights on the CPU (the plain Stage 1), logits and SSM states within
+   1e-3, tokens identical. (b) the real model, 48 layers in bf16, served:
+   8 requests in 4 slots, one batch padded to 1024 tokens (4 chunks), one
+   of at most 256 (an odd chunk length), 16 new tokens each; every logit
+   finite, every token in the vocab, 48 SSD launches per prefill. Then
+   where the time of one 4 x 1024 prefill and of one decode step goes.
 
 It exits non-zero when there is no CUDA device, when the port cannot be
 imported, or when any phase fails. The line before the last is the
@@ -44,13 +57,15 @@ imported, or when any phase fails. The line before the last is the
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +74,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # Peak rates outside the tensor cores, H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 M = 10
-ALL_PHASES = ("build", "kernels", "main", "breakdown")
+ALL_PHASES = ("build", "kernels", "main", "breakdown", "lm")
+# The kernels each path launches; its run must raise every one of their counts.
+MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
+                "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
+LM_KERNELS = ("ssd_stage1",)
+LM_ARCH = "mamba2-1.3b"
 # 48 ragged systems of 60,000 ... 100,000 rows: padded to P_max = 10,000
 # blocks they fill 80.0 % of the wide grid, so "auto" interleaves them.
 RAGGED_48 = tuple(60_000 + (40_000 * i // 47) // M * M for i in range(48))
@@ -165,6 +185,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         "partition_stage3_wide": ("src/repro_torch/csrc/partition_stage3_wide.cu",
                                   "src/repro/kernels/partition_stage3/stage3.py:51"),
         "thomas_wide": ("src/repro_torch/csrc/thomas.cu", "src/repro/kernels/thomas/thomas.py:22"),
+        "tridiag_matvec": ("src/repro_torch/csrc/tridiag_matvec.cu",
+                           "src/repro/kernels/tridiag_matvec/matvec.py:13"),
+        "ssd_stage1": ("src/repro_torch/csrc/ssd_stage1.cu",
+                       "src/repro/kernels/ssd_stage1/ssd1.py:28"),
     }
     # (row, dtype tag, rows per system) of every Thomas row, for the chain floor.
     chains: List[Tuple[Dict[str, Any], str, int]] = []
@@ -172,8 +196,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
 
     def check(name: str, dtype: torch.dtype, kernel: Callable[[], Any], plain: Callable[[], Any],
               nbytes: float, ops: float, reps: int = 20, plain_reps: int = 5,
-              plain_warmup: int = 2) -> Tuple[Any, float]:
-        """Run, compare and time one kernel against its plain version;
+              plain_warmup: int = 2,
+              library: Optional[Callable[[], Any]] = None) -> Tuple[Any, float]:
+        """Run, compare and time one kernel against its plain version (and
+        one PyTorch call computing the same function, where there is one);
         returns the kernel's output and its median ms."""
         got = kernel()
         plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
@@ -184,15 +210,20 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             assert_allclose_by_dtype(g, w, dtype)
         err = max(max_err(g, w) for g, w in pairs)
         ms = cuda_ms(kernel, reps=reps)
+        lib_ms = None
+        if library is not None:
+            lib_ms, lib_out = timed_cuda(library, reps=reps)
+            assert_allclose_by_dtype(lib_out, got, dtype)
         b_ms, b_by = bound(nbytes, ops, dtype)
         source, replaces = sources[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "chain_floor_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "chain_floor_ms": None,
         })
         log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}")
+            f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
+            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
         return got, ms
 
     def stage1_cost(bsz: int, p: int, es: int) -> Tuple[float, float]:
@@ -326,6 +357,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             check_thomas(tag, dtype, es, tuple(torch.as_tensor(a, device=dev) for a in ops_np[:4]),
                          plain_reps=2, plain_warmup=1)
 
+    lm_kernel_rows(dev, check)
+
     # The dependent-chain floor of every Thomas row: 2n steps at the per-step
     # time of one system of 4096 rows (B = 1), measured above in this run.
     step_ms = {tag: row["ms"] / (2 * tn) for row, tag, tn in chains
@@ -337,12 +370,76 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
     return rows
 
 
+def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -> None:
+    """The tridiagonal matvec and the SSD intra-chunk stage against their
+    plain versions, at the shapes their paths give them."""
+    from repro_torch.core.tridiag.matvec import tridiag_matvec
+    from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel, ssd_stage1_cuda
+    from repro_torch.kernels.tridiag_matvec.ops import tridiag_matvec_cuda
+    from repro_torch.models.layers.ssm import ssd_scan, ssd_stage1
+
+    # The residual check of the main path's n = 1e7 fp64 solve, and an fp32
+    # system whose length is a multiple of nothing. The library call is a
+    # CSR sparse product on the same matrix (built outside the timing).
+    for n, dtype in ((10_000_000, torch.float64), (1_000_003, torch.float32)):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        dl, d, du, _, x = (torch.as_tensor(a, device=dev).to(dtype)
+                           for a in system(n, 30, np.float64))
+        rows_i = torch.arange(n, device=dev)
+        idx = torch.stack([torch.cat([rows_i[1:], rows_i, rows_i[:-1]]),
+                           torch.cat([rows_i[:-1], rows_i, rows_i[1:]])])
+        csr = torch.sparse_coo_tensor(idx, torch.cat([dl[1:], d, du[:-1]]), (n, n)).coalesce().to_sparse_csr()
+        es = torch.empty((), dtype=dtype).element_size()
+        check(f"tridiag_matvec/{tag}/N={n}", dtype, lambda: tridiag_matvec_cuda(dl, d, du, x),
+              lambda: tridiag_matvec(dl, d, du, x), 5 * n * es, 5 * n,
+              library=lambda: (csr @ x[:, None])[:, 0])
+        del dl, d, du, x, csr, idx
+
+    # SSD Stage 1 at mamba2-1.3b's widths (H = 64 heads of P = 64, N = 128):
+    # the 4 x 1024-token prefill's G = 16 cells of Q = 256, and the odd chunk
+    # of a batch padded to 197 tokens. Inputs as in tests/test_kernel_ssd.py.
+    nh, p, n = 64, 64, 128
+    for g, q in ((16, 256), (4, 197)):
+        rng = np.random.default_rng(g + q)
+        u = torch.as_tensor(rng.standard_normal((g, q, nh, p)) * 0.5, device=dev).float()
+        dac = torch.as_tensor(-0.1 * np.log1p(np.exp(rng.standard_normal((g, q, nh)))),
+                              device=dev).float()
+        b, c = (torch.as_tensor(rng.standard_normal((g, q, n)) * 0.5, device=dev).float()
+                for _ in range(2))
+        causal = q * (q + 1) // 2  # the (q, k <= q) pairs
+        macs = g * (causal * n + nh * causal * p + nh * q * p * n)
+        nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
+        check(f"ssd_stage1/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
+              lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
+              nbytes, 2 * macs)
+        del u, dac, b, c
+
+    # The whole chunked scan through the kernel against the plain scan, with
+    # and without an incoming state, at 1e-4 (tests/test_kernel_ssd.py).
+    rng = np.random.default_rng(40)
+    bsz, s = 2, 1024
+    x = torch.as_tensor(rng.standard_normal((bsz, s, nh, p)) * 0.5, device=dev).float()
+    dt = torch.as_tensor(np.log1p(np.exp(rng.standard_normal((bsz, s, nh)))), device=dev).float()
+    a = torch.as_tensor(-np.exp(rng.standard_normal(nh) * 0.3), device=dev).float()
+    b_in, c_in = (torch.as_tensor(rng.standard_normal((bsz, s, n)) * 0.5, device=dev).float()
+                  for _ in range(2))
+    for h0 in (None, torch.full((bsz, nh, p, n), 0.1, device=dev)):
+        got = ssd_scan_kernel(x, dt, a, b_in, c_in, chunk=256, h0=h0)
+        want = ssd_scan(x, dt, a, b_in, c_in, chunk=256, h0=h0)
+        errs = []
+        for gt, wt in zip(got, want):
+            np.testing.assert_allclose(gt.cpu().numpy(), wt.cpu().numpy(), rtol=1e-4, atol=1e-4)
+            errs.append(max_err(gt, wt))
+        log(f"  ssd_scan_kernel vs ssd_scan, B={bsz}, S={s}, chunk=256, "
+            f"h0={'None' if h0 is None else '0.1'}: max_abs_err y={errs[0]:.3e} state={errs[1]:.3e}")
+
+
 # --------------------------------------------------------------------- main --
 def main_phase(dev: torch.device) -> Dict[str, int]:
     from repro_torch.api import HeuristicChunkPolicy, SolveRequest, SolverConfig, TridiagSession
     from repro_torch.core.autotune import fit_stream_heuristic
     from repro_torch.core.streams import StreamSimulator
-    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels import LAUNCH_COUNTERS, tridiag_matvec_cuda
     from repro_torch.kernels.common import assert_allclose_by_dtype
 
     heuristic = fit_stream_heuristic(StreamSimulator(seed=1).dataset(reps=2))
@@ -374,8 +471,14 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
         x, ms = timed(lambda: session.solve(*big[:4]))
         assert x.shape == big[4].shape and np.isfinite(x).all()
         assert_allclose_by_dtype(x, big[4], np.float64)
+        # The residual through the matvec kernel, on the card.
+        dl, d, du, b, xd = (torch.as_tensor(a, device=dev) for a in (*big[:4], x))
+        res = float((tridiag_matvec_cuda(dl, d, du, xd) - b).abs().max())
+        assert res <= 1e-10 * float(b.abs().max()), res
+        del dl, d, du, b, xd
         log(f"  solve n=1e7 fp64: chunks={session.plan_for(big[4].size).num_chunks} "
-            f"latency_ms={ms:.3f} max_err_vs_x_true={max_err(x, big[4]):.3e}")
+            f"latency_ms={ms:.3f} max_err_vs_x_true={max_err(x, big[4]):.3e} "
+            f"residual_max_abs={res:.3e}")
 
         x, ms = timed(lambda: session.solve(*mid32[:4]))
         assert x.dtype == np.float32 and np.isfinite(x).all()
@@ -444,7 +547,7 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
     interleaved_phase(cfg.replace(layout="auto"), timed, batched)
     staged_phase(cfg.replace(layout="auto"), big)
 
-    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    launches = {name: LAUNCH_COUNTERS[name].count for name in MAIN_KERNELS}
     log(f"  launch counts on the main path: {launches}")
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was never launched on the main path"
@@ -631,6 +734,195 @@ def interleaved_breakdown(dev: torch.device) -> None:
         f"wide Thomas share of device={s2 / device:.3f}")
 
 
+# ----------------------------------------------------------------------- lm --
+def lm_phase(dev: torch.device) -> Dict[str, int]:
+    """The LM serving path on the card; returns the SSD kernel's launches."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+    log(f"  torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"(fp32 products in full fp32)")
+    lm_parity(dev)
+    params, cfg = lm_serve(dev)
+    launches = {name: LAUNCH_COUNTERS[name].count for name in LM_KERNELS}
+    log(f"  launch counts on the lm path: {launches}")
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} was never launched on the lm path"
+    lm_breakdown(dev, params, cfg)
+    return launches
+
+
+def lm_parity(dev: torch.device) -> None:
+    """(a) Full width, 2 layers, fp32: the card against the CPU, same weights."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models.convert import caches_to_reference
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2, dtype="float32")
+    model, pctx = build_model(cfg), ParallelCtx()
+    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card_params = copy.deepcopy(cpu_params).to(dev)
+    tokens = torch.as_tensor(np.random.default_rng(50).integers(0, cfg.vocab_size, size=(2, 512)))
+    ssd = LAUNCH_COUNTERS["ssd_stage1"]
+    runs = {}
+    for where, params in (("cpu", cpu_params), ("cuda", card_params)):
+        before = ssd.count
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": tokens.to(params.emb.embed.device)}, pctx)
+        steps, toks = [logits.float().cpu()], []
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        for i in range(4):
+            toks.append(tok[:, 0].tolist())
+            pos = torch.full((2,), 512 + i, dtype=torch.int32, device=tok.device)
+            logits, caches = model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx)
+            steps.append(logits[:, -1].float().cpu())
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        toks.append(tok[:, 0].tolist())
+        if where == "cuda":
+            torch.cuda.synchronize()
+        runs[where] = (steps, toks, caches_to_reference(caches, cfg)["ssm"])
+        log(f"  (a) {where}: prefill 2x512 + 4 decode steps in "
+            f"{time.perf_counter() - t0:.2f} s, ssd_stage1 launches {ssd.count - before}")
+    assert ssd.count == cfg.num_layers, ssd.count  # the card's prefill, one per layer
+    (c_steps, c_toks, c_states), (g_steps, g_toks, g_states) = runs["cpu"], runs["cuda"]
+    errs = []
+    for cl, gl in zip(c_steps, g_steps):
+        np.testing.assert_allclose(gl.numpy(), cl.numpy(), rtol=1e-3, atol=1e-3)
+        errs.append(max_err(gl, cl))
+    for f in c_states:
+        np.testing.assert_allclose(g_states[f], c_states[f], rtol=1e-3, atol=1e-3)
+    assert g_toks == c_toks, (g_toks, c_toks)
+    log(f"  (a) {LM_ARCH} full width, 2 layers, fp32, card vs CPU: logits max_abs_err per step "
+        f"{['%.3e' % e for e in errs]}, final SSM state max_abs_err "
+        f"{max(max_err(g_states[f], c_states[f]) for f in c_states):.3e}, greedy tokens identical "
+        f"{g_toks}")
+
+
+def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
+    """(b) The real model served on the card, 48 layers in bf16."""
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    cfg = get_config(LM_ARCH)
+    ssd = LAUNCH_COUNTERS["ssd_stage1"]
+    rng = np.random.default_rng(60)
+    # Batch 1 pads to 1024 tokens (4 chunks of 256); batch 2 to 197 (one odd chunk).
+    lengths = (1024, 700, 512, 300, 197, 150, 64, 9)
+    reqs = [serve_mod.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n), max_new=16)
+            for i, n in enumerate(lengths)]
+    seen: Dict[str, Any] = {"prefill_ms": [], "decode_ms": [], "params": None}
+    make_prefill, make_decode = serve_mod.make_prefill_step, serve_mod.make_decode_step
+
+    def checked(logits: torch.Tensor) -> None:
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        assert bool((logits[..., cfg.vocab_size:] == -1e30).all())
+
+    def prefill_step(*a: Any, **k: Any) -> Callable[..., Any]:
+        step = make_prefill(*a, **k)
+
+        def run(params: Any, batch: Dict[str, torch.Tensor]) -> Any:
+            seen["params"] = params
+            before = ssd.count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = step(params, batch)
+            torch.cuda.synchronize()
+            seen["prefill_ms"].append((tuple(batch["tokens"].shape), (time.perf_counter() - t0) * 1e3))
+            assert ssd.count - before == cfg.num_layers, (ssd.count - before, cfg.num_layers)
+            checked(logits)
+            return logits, caches
+        return run
+
+    def decode_step(*a: Any, **k: Any) -> Callable[..., Any]:
+        step = make_decode(*a, **k)
+
+        def run(*args: Any) -> Any:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = step(*args)
+            torch.cuda.synchronize()
+            seen["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            checked(logits)
+            return logits, caches
+        return run
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve_mod.make_prefill_step, serve_mod.make_decode_step = prefill_step, decode_step
+    try:
+        done, stats = serve_mod.serve(arch=LM_ARCH, requests=reqs, batch_slots=4, smoke=False,
+                                      seed=0, device="cuda")
+    finally:
+        serve_mod.make_prefill_step, serve_mod.make_decode_step = make_prefill, make_decode
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert stats["prefills"] == 2 and stats["tokens"] == 16 * len(reqs), stats
+    for r in done:
+        assert len(r.out) == 16 and all(0 <= t < cfg.vocab_size for t in r.out), (r.rid, r.out)
+    n_params = sum(p.numel() for p in seen["params"].parameters())
+    dec = seen["decode_ms"]
+    log(f"  (b) {LM_ARCH} served, {cfg.num_layers} layers, {cfg.dtype}, {n_params} parameters: "
+        f"prefill_ms per batch {[(shape, round(ms, 3)) for shape, ms in seen['prefill_ms']]}, "
+        f"decode_ms per token median {statistics.median(dec):.3f} (min {min(dec):.3f}, "
+        f"max {max(dec):.3f}, {len(dec)} steps), tokens/s {stats['tokens'] / stats['wall_s']:.1f} "
+        f"(wall_s {stats['wall_s']:.3f}), peak_memory_GB {peak / 1e9:.3f}; stats {stats}; "
+        f"first tokens {[r.out[:4] for r in done[:2]]}")
+    return seen["params"], cfg
+
+
+def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
+    """Where one full-width bf16 prefill of 4 x 1024 tokens and one decode
+    step at batch 4 go: each part timed on its own with CUDA events (48
+    times one layer's part), the rest by difference."""
+    from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel, ssd_stage1_cuda
+    from repro_torch.models.layers.embedding import logits_out
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    model, pctx = build_model(cfg), ParallelCtx()
+    layers = cfg.num_layers
+    layer = params.layers[0].ssm
+    d, di, nh, p, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(70)
+    bf16 = params.emb.embed.dtype
+    bsz = 4
+    with torch.inference_mode():
+        for s in (1024, 1):
+            tokens = torch.randint(0, cfg.vocab_size, (bsz, s), generator=gen, device=dev)
+            if s > 1:
+                total = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, pctx), reps=3, warmup=1)
+            else:
+                _, caches = model.prefill(params, {"tokens": tokens}, pctx)
+                pos = torch.full((bsz,), 1, dtype=torch.int32, device=dev)
+                total = cuda_ms(lambda: model.decode_step(
+                    params, caches, {"token": tokens, "pos": pos}, pctx), reps=10, warmup=2)
+            x = torch.randn(bsz, s, d, generator=gen, device=dev).to(bf16)
+            y = torch.randn(bsz, s, di, generator=gen, device=dev).to(bf16)
+            proj = cuda_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
+                                    x @ layer.w_dt, y @ layer.out_proj), reps=10) * layers
+            logits = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
+            parts = {"projections": proj, "logits": logits}
+            if s > 1:
+                xh = torch.randn(bsz, s, nh, p, generator=gen, device=dev)
+                dt = torch.nn.functional.softplus(torch.randn(bsz, s, nh, generator=gen, device=dev))
+                a = -torch.exp(layer.a_log)
+                b_in, c_in = (torch.randn(bsz, s, n, generator=gen, device=dev) for _ in range(2))
+                scan = cuda_ms(lambda: ssd_scan_kernel(xh, dt, a, b_in, c_in, chunk=cfg.ssm_chunk),
+                               reps=10) * layers
+                g, q = bsz * s // cfg.ssm_chunk, cfg.ssm_chunk
+                u, dac, bc, cc = (xh.reshape(g, q, nh, p), (dt * a).reshape(g, q, nh),
+                                  b_in.reshape(g, q, n), c_in.reshape(g, q, n))
+                kernel = cuda_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc), reps=10) * layers
+                parts.update({"ssd_stage1 kernel": kernel,
+                              "ssd stages 2-3 and glue": scan - kernel})
+            parts["rest (conv, norms, gating, embedding, launches)"] = total - sum(parts.values())
+            label = f"prefill {bsz}x{s}" if s > 1 else f"decode step, batch {bsz}"
+            log(f"  where the time goes, {label} (bf16, {layers} layers): total_ms={total:.3f}; "
+                + "; ".join(f"{k}={v:.3f} ({v / total:.1%})" for k, v in parts.items()))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -666,16 +958,21 @@ def main() -> int:
     if "kernels" in phases:
         log("kernels: each kernel against its plain version on the card")
         rows = kernel_phase(dev)
-    # Launch counts come from the main phase alone; without it they are
-    # not measured.
+    # Launch counts come from the path that runs each kernel (the main phase
+    # for the solver's, the lm phase for the SSD kernel's); a kernel whose
+    # path did not run has none.
     launches: Dict[str, Any] = {name: None for name in LAUNCH_COUNTERS}
     if "main" in phases:
         log("main: TridiagSession(device='cuda', backend='auto', heuristic policy)")
-        launches = main_phase(dev)
+        launches.update(main_phase(dev))
     if "breakdown" in phases:
         log("breakdown: where one n=1e7 fp64 solve and one interleaved 1024x10000 "
             "solve_batched spend their time (CUDA events)")
         breakdown_phase(dev)
+    if "lm" in phases:
+        log(f"lm: {LM_ARCH} through repro_torch.launch.serve (Model.prefill/decode_step, "
+            f"ssd_scan_kernel)")
+        launches.update(lm_phase(dev))
 
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]

@@ -32,6 +32,8 @@ SOURCES: Tuple[str, ...] = (
     "partition_stage3",
     "partition_stage1_wide",
     "partition_stage3_wide",
+    "ssd_stage1",
+    "tridiag_matvec",
 )
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -1,0 +1,82 @@
+"""SSD Stage 1 (Mamba-2's intra-chunk stage): CUDA kernel wrapper, and the
+chunked scan around it.
+
+Replaces ``repro.kernels.ssd_stage1`` (the ``_ssd1_kernel`` Pallas body,
+reached through ``ssd1_tiled`` from ``ssd_scan_pallas``). The kernel is
+``csrc/ssd_stage1.cu``: a score kernel (C·Bᵀ per cell, tiles on or below the
+diagonal) and an intra-chunk kernel (one block per cell, head and 64
+columns of the head dim) that applies the decay on the fly. Its plain
+version is :func:`repro_torch.models.layers.ssm.ssd_stage1`.
+
+:func:`ssd_scan_kernel` is the counterpart of ``ssd_scan_pallas``: the same
+signature and semantics as the plain
+:func:`repro_torch.models.layers.ssm.ssd_scan`, with Stage 1 through
+:func:`ssd_stage1_cuda`; Stages 2 and 3 stay tensor ops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build, common
+from repro_torch.models.layers.ssm import chunked_ssd, ssd_stage1
+
+SSD_STAGE1_LAUNCHES = common.LaunchCounter("ssd_stage1")
+#: The longest chunk the kernel takes (its shared-memory prefix sum).
+MAX_CHUNK = 1024
+
+Tensor = torch.Tensor
+
+
+def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
+    """u: [G, Q, H, P]; dac: [G, Q, H]; b/c: [G, Q, N], all fp32 on the card.
+    Returns (y_diag [G, Q, H, P], states [G, H, P, N])."""
+    if u.ndim != 4:
+        raise ValueError(f"ssd_stage1 takes u of shape [G, Q, H, P], got {tuple(u.shape)}")
+    g, q, nh, p = u.shape
+    n = b.shape[-1]
+    shapes = [(g, q, nh, p), (g, q, nh), (g, q, n), (g, q, n)]
+    for name, t, shape in zip(("u", "dac", "b", "c"), (u, dac, b, c), shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssd_stage1: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if not common.on_cuda(u, dac, b, c):
+        return ssd_stage1(u, dac, b, c)
+    for name, t in zip(("u", "dac", "b", "c"), (u, dac, b, c)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_stage1: the kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_stage1: {name} must be contiguous")
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"ssd_stage1: chunk length {q} outside 1..{MAX_CHUNK}")
+    lib = build.load("ssd_stage1")
+    fn = lib.ssd_stage1_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty_like(u)
+    s = torch.empty(g, nh, p, n, dtype=torch.float32, device=u.device)
+    scores = torch.empty(g, q, q, dtype=torch.float32, device=u.device)  # scratch: C·Bᵀ
+    with torch.cuda.device(u.device):
+        code = fn(*(common.ptr(t) for t in (u, dac, b, c, y, s, scores)),
+                  g, q, nh, p, n, common.current_stream(u.device))
+    common.raise_on_error("ssd_stage1", code, lib)
+    SSD_STAGE1_LAUNCHES.add()
+    return y, s
+
+
+def ssd_scan_kernel(
+    x: Tensor,
+    dt: Tensor,
+    a: Tensor,
+    b_in: Tensor,
+    c_in: Tensor,
+    *,
+    chunk: int,
+    h0: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Drop-in for ``ssm.ssd_scan`` with Stage 1 through the kernel wrapper.
+    Returns (y [B, S, H, P], final_state [B, H, P, N]); raises
+    ``ValueError`` unless S is a multiple of ``min(chunk, S)``."""
+    return chunked_ssd(ssd_stage1_cuda, x, dt, a, b_in, c_in, chunk=chunk, h0=h0)

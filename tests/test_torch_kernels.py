@@ -147,7 +147,9 @@ def test_stage3_left_edge_is_the_neighbours_interface_value():
 def test_cpu_tensors_take_the_plain_path_without_counting():
     from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_wide
     from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_wide
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_cuda
     from repro_torch.kernels.thomas.ops import thomas_cuda_wide
+    from repro_torch.kernels.tridiag_matvec.ops import tridiag_matvec_cuda
 
     before = {k: c.count for k, c in LAUNCH_COUNTERS.items()}
     dl, d, du, b, _ = (torch.from_numpy(a) for a in make_diag_dominant_system(40, seed=1))
@@ -155,6 +157,9 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     partition_stage3_cuda(c, thomas_cuda(c.red_dl, c.red_d, c.red_du, c.red_b))
     cw = partition_stage1_cuda_wide(*(a.reshape(2, 10, 2) for a in (dl, d, du, b)), m=10)
     partition_stage3_cuda_wide(cw, thomas_cuda_wide(cw.red_dl, cw.red_d, cw.red_du, cw.red_b))
+    tridiag_matvec_cuda(dl, d, du, b)
+    ssd_stage1_cuda(torch.ones(1, 4, 2, 3), -torch.ones(1, 4, 2), torch.ones(1, 4, 5),
+                    torch.ones(1, 4, 5))
     assert {k: c.count for k, c in LAUNCH_COUNTERS.items()} == before
     assert set(LAUNCH_COUNTERS) == {
         "partition_stage1",
@@ -163,6 +168,8 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
         "partition_stage1_wide",
         "thomas_wide",
         "partition_stage3_wide",
+        "ssd_stage1",
+        "tridiag_matvec",
     }
 
 
