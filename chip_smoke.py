@@ -11,13 +11,18 @@ Phases:
    reference stage) on the card, in fp64 and fp32, at shapes the main path
    gives it: the system-major and batched Stage 1/Stage 3, the wide
    (interleaved) Stage 1/Stage 3, ragged identity padding included, the
-   Thomas kernel on both routes, the tridiagonal matvec, and the SSD
-   intra-chunk stage at mamba2-1.3b's widths; max error against the
+   reduced solve (``thomas``) on both routes, the tridiagonal matvec, and
+   the SSD intra-chunk stage at mamba2-1.3b's widths; max error against the
    tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events,
    the plain version's time and the bound (bytes over 3.35 TB/s or
-   operations over the peak rate, whichever is larger); for Thomas also the
-   dependent-chain floor, 2n steps at the per-step time of the B = 1,
-   n = 4096 row; for the matvec the CSR sparse product's time.
+   operations over the peak rate, whichever is larger); for the matvec the
+   CSR sparse product's time. Stage 1 is also timed with its reduced rows
+   from a second kernel, the choice it does not take, and held against its
+   plain version at block sizes m = 2 ... 100. Every Thomas row
+   prints its level sizes and must give the same bits twice; the reduced
+   solve is also held against the plain Thomas loop at the edges of its
+   level structure (both routes, both dtypes, B = 1, 3, 64), and a sweep of
+   the sub-block size r at B = 1, n = 1e6 fp64 is printed.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -25,7 +30,7 @@ Phases:
    ragged mix of paper sizes and 16 ``submit`` futures, and ``solve`` on
    the stacked (64, 100,000) operands, which runs the batched kernels;
    ``solve`` at n = 1e7 and on the stacked operands with 1 and 8 chunks
-   must agree; a ``backend="reference"`` session on the card is the plain
+   must agree bit for bit; a ``backend="reference"`` session on the card is the plain
    comparison. Interleaved (``layout="auto"``, which must resolve to it):
    ``solve_batched`` at 64 x 100,000 (fp64, fp32) and 1024 x 10,000,
    ``solve_many`` of 48 ragged systems and 64 served ``submit`` requests,
@@ -37,7 +42,9 @@ Phases:
    kernel's launch counter must rise.
 4. ``breakdown``: where the time of one n = 1e7 fp64 solve and of one
    interleaved ``solve_batched`` of 1024 x 10,000 fp64 goes, stage by
-   stage, from CUDA events and the host clock around the copies.
+   stage, from CUDA events and the host clock around the copies, and how
+   long the host takes to enqueue the n = 1e7 fused path and its reduced
+   solve.
 5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
@@ -133,6 +140,20 @@ def host_ms(fn: Callable[[], Any], reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def enqueue_ms(fn: Callable[[], Any], reps: int = 3) -> float:
+    """Median host-clock time for ``fn`` to return, from an idle card: the
+    host's work of enqueuing it. Where it is close to the device time, the
+    card waits on the host."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> Tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
@@ -166,13 +187,22 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         partition_stage1_cuda,
         partition_stage1_cuda_batched,
         partition_stage1_cuda_wide,
+        run_stage1,
+        span_blocks,
     )
     from repro_torch.kernels.partition_stage3.ops import (
         partition_stage3_cuda,
         partition_stage3_cuda_batched,
         partition_stage3_cuda_wide,
     )
-    from repro_torch.kernels.thomas.ops import thomas_cuda, thomas_cuda_wide
+    from repro_torch.kernels.thomas.ops import (
+        N0,
+        R,
+        level_sizes,
+        thomas_cuda,
+        thomas_cuda_wide,
+        thomas_levels_cuda,
+    )
 
     sources = {
         "partition_stage1": ("src/repro_torch/csrc/partition_stage1.cu",
@@ -190,8 +220,6 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         "ssd_stage1": ("src/repro_torch/csrc/ssd_stage1.cu",
                        "src/repro/kernels/ssd_stage1/ssd1.py:28"),
     }
-    # (row, dtype tag, rows per system) of every Thomas row, for the chain floor.
-    chains: List[Tuple[Dict[str, Any], str, int]] = []
     rows: List[Dict[str, Any]] = []
 
     def check(name: str, dtype: torch.dtype, kernel: Callable[[], Any], plain: Callable[[], Any],
@@ -219,7 +247,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "chain_floor_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
         log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
@@ -244,14 +272,26 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             bsz, tn = (1, ops4[1].shape[0]) if ops4[1].ndim == 1 else tuple(ops4[1].shape)
             name = f"thomas/{tag}/B={bsz},n={tn}"
             kernel, plain = thomas_cuda, thomas
-        _, ms = check(name, dtype, lambda: kernel(*ops4), lambda: plain(*ops4),
-                      5 * bsz * tn * es, 8 * bsz * tn, **kw)
-        # The bytes/operations bound misses what limits this kernel: each
-        # system is a chain of 2n dependent division steps on one thread.
-        chains.append((rows[-1], tag, tn))
-        log(f"    serial chain: {2 * tn} dependent steps per system, "
-            f"{ms * 1e6 / (2 * tn):.1f} ns per step measured")
+        got, ms = check(name, dtype, lambda: kernel(*ops4), lambda: plain(*ops4),
+                        5 * bsz * tn * es, 8 * bsz * tn, **kw)
+        assert torch.equal(kernel(*ops4), got), f"{name}: two calls differ"
+        log(f"    levels {' -> '.join(map(str, level_sizes(tn)))} (r={R}, n0={N0}); "
+            f"two calls bit-identical")
         return ms
+
+    def check_stage1(name: str, dtype: torch.dtype, ops4: Tuple[torch.Tensor, ...],
+                     batched: bool, nbytes: float, nops: float) -> Any:
+        """A system-major Stage 1 row, and the same call with its reduced
+        rows from the second kernel (the choice the wrapper does not take)."""
+        wrapper = partition_stage1_cuda_batched if batched else partition_stage1_cuda
+        c, ms = check(name, dtype, lambda: wrapper(*ops4, m=M),
+                      lambda: partition_stage1(*ops4, M), nbytes, nops)
+        two = run_stage1(*ops4, M, fused=False)
+        assert all(torch.equal(a, b) for a, b in zip(c, two)), f"{name}: fused and two-kernel differ"
+        two_ms = cuda_ms(lambda: run_stage1(*ops4, M, fused=False), reps=20)
+        log(f"    {span_blocks(M, dtype)} blocks a span; reduced rows from the halo {ms:.4f} ms, "
+            f"from a second kernel {two_ms:.4f} ms (same bits)")
+        return c
 
     def wide_ops(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
                  sizes: Tuple[int, ...]) -> Tuple[torch.Tensor, ...]:
@@ -280,18 +320,24 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         # Stage 1 and Stage 3 on one n = 1e7 system (P = 1e6, m = 10), the
         # unchunked shape of the main path's largest solve.
         dl, d, du, b, _ = (torch.as_tensor(a, device=dev) for a in system(p * M, 11, np_dtype))
-        c, _ = check(f"partition_stage1/{tag}/P={p},m={M}", dtype,
-                     lambda: partition_stage1_cuda(dl, d, du, b, m=M),
-                     lambda: partition_stage1(dl, d, du, b, M), *stage1_cost(1, p, es))
+        c = check_stage1(f"partition_stage1/{tag}/P={p},m={M}", dtype, (dl, d, du, b), False,
+                         *stage1_cost(1, p, es))
         s = torch.as_tensor(np.random.default_rng(12).standard_normal(p), device=dev).to(dtype)
         check(f"partition_stage3/{tag}/P={p},m={M}", dtype,
               lambda: partition_stage3_cuda(c, s), lambda: partition_stage3(c, s),
               *stage3_cost(1, p, es))
         red = (c.red_dl, c.red_d, c.red_du, c.red_b)
         if dtype == torch.float64:
-            # The main path's reduced system of the n = 1e7 fp64 solve: one
-            # thread, P = 1e6 rows. The plain loop takes minutes: one call.
-            check_thomas(tag, dtype, es, red, reps=3, plain_reps=1, plain_warmup=0)
+            # The main path's reduced system of the n = 1e7 fp64 solve,
+            # P = 1e6 rows. The plain loop takes minutes: one call.
+            check_thomas(tag, dtype, es, red, reps=10, plain_reps=1, plain_warmup=0)
+            # The sub-block size of the levels, swept on these rows.
+            red2 = tuple(a[None] for a in red)
+            sweep = {r: cuda_ms(lambda: thomas_levels_cuda(*red2, wide=False, r=r), reps=20)
+                     for r in (8, 16, 32)}
+            log("    r sweep at B=1, n=1e6 fp64: " + "; ".join(
+                f"r={r} ({' -> '.join(map(str, level_sizes(p, r)))}) {t:.4f} ms"
+                for r, t in sweep.items()) + f"; chosen r={R}")
         del dl, d, du, b, c, s, red
 
         if dtype == torch.float32:
@@ -309,9 +355,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         bp = bn // M
         dl, d, du, b, _ = (torch.as_tensor(a, device=dev)
                            for a in system(bn, 14, np_dtype, batch=(bsz,)))
-        c, _ = check(f"partition_stage1/{tag}/B={bsz},P={bp},m={M}", dtype,
-                     lambda: partition_stage1_cuda_batched(dl, d, du, b, m=M),
-                     lambda: partition_stage1(dl, d, du, b, M), *stage1_cost(bsz, bp, es))
+        c = check_stage1(f"partition_stage1/{tag}/B={bsz},P={bp},m={M}", dtype, (dl, d, du, b),
+                         True, *stage1_cost(bsz, bp, es))
         s = torch.as_tensor(np.random.default_rng(15).standard_normal((bsz, bp)), device=dev).to(dtype)
         left = torch.as_tensor(np.random.default_rng(16).standard_normal(bsz), device=dev).to(dtype)
         check(f"partition_stage3/{tag}/B={bsz},P={bp},m={M}", dtype,
@@ -357,17 +402,72 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             check_thomas(tag, dtype, es, tuple(torch.as_tensor(a, device=dev) for a in ops_np[:4]),
                          plain_reps=2, plain_warmup=1)
 
-    lm_kernel_rows(dev, check)
+        thomas_edges(dev, np_dtype, dtype)
+        stage1_edges(dev, np_dtype, dtype)
 
-    # The dependent-chain floor of every Thomas row: 2n steps at the per-step
-    # time of one system of 4096 rows (B = 1), measured above in this run.
-    step_ms = {tag: row["ms"] / (2 * tn) for row, tag, tn in chains
-               if row["name"] == f"thomas/{tag}/B=1,n=4096"}
-    for row, tag, tn in chains:
-        row["chain_floor_ms"] = 2 * tn * step_ms[tag]
-        log(f"  {row['name']}: chain_floor_ms={row['chain_floor_ms']:.4f} "
-            f"ms/chain_floor={row['ms'] / row['chain_floor_ms']:.3f}")
+    lm_kernel_rows(dev, check)
     return rows
+
+
+def thomas_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
+    """The reduced solve on both routes against the plain Thomas loop at the
+    edges of its level structure: no level, the base at its edges, one, two
+    and three levels; B = 1, 3, 64 (the plain loop runs once on the 64
+    systems: it treats each system alone, so its first B rows are the answer
+    for B systems). Two calls must give the same bits."""
+    from repro_torch.core.tridiag.thomas import thomas
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.kernels.thomas.ops import N0, R, level_sizes, thomas_cuda, thomas_cuda_wide
+
+    sizes = (1, 2, N0, N0 + 1, R * N0 - 1, R * N0 + 1, R * R * N0 + 1)
+    errs = []
+    for wide in (False, True):
+        for n in sizes:
+            ops = [torch.as_tensor(a, device=dev) for a in system(n, 500 + n, np_dtype, batch=(64,))[:4]]
+            want = thomas(*ops)
+            for bsz in (1, 3, 64):
+                sub = [a[:bsz].T.contiguous() if wide else a[:bsz].contiguous() for a in ops]
+                kernel = thomas_cuda_wide if wide else thomas_cuda
+                got = kernel(*sub)
+                assert torch.equal(kernel(*sub), got), (wide, n, bsz)
+                got = got.T if wide else got
+                assert_allclose_by_dtype(got, want[:bsz], dtype)
+                errs.append(max_err(got, want[:bsz]))
+    log(f"  thomas / thomas_wide at the level edges, {np_dtype.__name__}: n in {sizes} "
+        f"(levels of the last: {' -> '.join(map(str, level_sizes(sizes[-1])))}), B in (1, 3, 64), "
+        f"both routes: max_abs_err={max(errs):.3e}, two calls bit-identical")
+
+
+def stage1_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
+    """System-major Stage 1 against its plain version over the block sizes
+    it takes: the smallest, the main path's m, the reduced solve's R, the
+    largest staged through shared memory and the first walked from device
+    memory; B = 3 systems of P = 1000 blocks (a ragged last span). The
+    reduced rows from the halo and from the second kernel must agree bit
+    for bit."""
+    from repro_torch.core.tridiag.partition import partition_stage1
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.kernels.partition_stage1.ops import (
+        partition_stage1_cuda_batched,
+        run_stage1,
+        span_blocks,
+    )
+    from repro_torch.kernels.thomas.ops import R
+
+    ms = (2, 3, M, R, 64, 65, 100)
+    errs = []
+    for m in ms:
+        ops = [torch.as_tensor(a, device=dev) for a in system(1000 * m, 700 + m, np_dtype, batch=(3,))[:4]]
+        got = partition_stage1_cuda_batched(*ops, m=m)
+        for g, w in zip(got, partition_stage1(*ops, m)):
+            assert_allclose_by_dtype(g, w, dtype)
+            errs.append(max_err(g, w))
+        if span_blocks(m, dtype):
+            two = run_stage1(*ops, m, fused=False)
+            assert all(torch.equal(a, b) for a, b in zip(got, two)), f"stage1 m={m}: halo and second kernel differ"
+    log(f"  partition_stage1 at the block-size edges, {np_dtype.__name__}: m in {ms} "
+        f"(blocks a span: {[span_blocks(m, dtype) for m in ms]}), B=3, P=1000: "
+        f"max_abs_err={max(errs):.3e}, halo and second kernel bit-identical")
 
 
 def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -> None:
@@ -530,10 +630,8 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
         for k in (1, 8):
             with TridiagSession(cfg.replace(policy=None, num_chunks=k)) as sk:
                 sols[k] = sk.solve(*ops[:4])
-        diff = max_err(sols[1], sols[8])
-        assert_allclose_by_dtype(sols[8], sols[1], np.float64)
-        log(f"  solve {label} chunks=1 vs chunks=8: max_abs_diff={diff!r} "
-            f"bit_identical={diff == 0.0}")
+        assert np.array_equal(sols[1], sols[8]), f"solve {label}: 1 and 8 chunks differ"
+        log(f"  solve {label} chunks=1 vs chunks=8: bit_identical=True")
 
     # The plain comparison: the same verbs on the card with backend="reference".
     small = system(100_000, 4, np.float64)
@@ -690,9 +788,12 @@ def breakdown_phase(dev: torch.device) -> None:
     fused = cuda_ms(lambda: _fused(plan, CudaBackend(), *ops), reps=3, warmup=1)
     total = h2d + fused + d2h
     log(f"  n=1e7 fp64, chunks={plan.num_chunks}: h2d_ms={h2d:.3f} stage1_ms={s1:.3f} "
-        f"reduced_thomas_ms={s2:.3f} stage3_ms={s3:.3f} d2h_ms={d2h:.3f} "
+        f"reduced_solve_ms={s2:.3f} stage3_ms={s3:.3f} d2h_ms={d2h:.3f} "
         f"fused_device_ms={fused:.3f} (h2d+fused+d2h={total:.3f}); "
         f"reduced solve share of fused={s2 / fused:.3f}")
+    log(f"    host enqueue: fused_enqueue_ms="
+        f"{enqueue_ms(lambda: _fused(plan, CudaBackend(), *ops)):.3f} "
+        f"reduced_solve_enqueue_ms={enqueue_ms(lambda: thomas_cuda(*red)):.3f}")
     del host, ops, c, red, s, x
     interleaved_breakdown(dev)
 

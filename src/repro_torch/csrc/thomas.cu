@@ -1,30 +1,43 @@
-// Batched Thomas solve: B independent tridiagonal systems of n rows.
+// Batched Thomas solve: the base case of the reduced solve.
 //
-// Replaces the TPU kernel src/repro/kernels/thomas/thomas.py (_thomas_kernel,
-// through thomas_tiled) on both of its routes in
-// src/repro/kernels/thomas/ops.py: thomas_pallas, (B, n) operands with a 1-D
-// system as a batch of one, and thomas_pallas_wide, interleaved (n, B)
-// operands. On the main path it is the fused executor's device Stage 2: the
-// reduced system of P = N/m rows (system-major), or B reduced systems of
-// P rows each on (P, B) rows (interleaved).
+// Together with csrc/partition_stage1.cu and csrc/partition_stage3.cu (and
+// their wide counterparts) it replaces the TPU kernel
+// src/repro/kernels/thomas/thomas.py (_thomas_kernel, through thomas_tiled)
+// on both of its routes in src/repro/kernels/thomas/ops.py: thomas_pallas,
+// (B, n) operands with a 1-D system as a batch of one, and
+// thomas_pallas_wide, interleaved (n, B) operands. On the main path that is
+// the fused executor's device Stage 2: the reduced system of P = N/m rows
+// (system-major), or B reduced systems of P rows each on (P, B) rows
+// (interleaved).
+//
+// What bounds a Thomas solve here is its chain, not bytes: row i needs
+// dhat[i-1] through a division, so one system is n dependent division steps
+// forward and n back (about 189 ns a step on one thread of an H100), and
+// one thread per system leaves all but one SM idle on the single reduced
+// system of the system-major path. So the wrapper
+// (repro_torch/kernels/thomas/ops.py) solves a system of n rows by the
+// partition method itself, recursively: while n > n0 it cuts the rows into
+// sub-blocks of r, runs Stage 1 with m = r (spikes, and one reduced row per
+// sub-block, written into the next level's buffers already padded to a
+// multiple of r with identity rows), recurses on the ceil(n/r) reduced
+// rows, then runs Stage 3 with m = r. This body solves only what is left at
+// n <= n0: a chain of at most 2*n0 steps per system. Every level above it is
+// bytes-bound and fills the card, so the whole solve is bound by the bytes
+// of its levels (each level 1/r of the one above, so about r/(r-1) times
+// the first level's Stage 1 and Stage 3) plus about 2*levels + 1 kernel
+// launches. No level needs pivoting: the solver's systems are strictly
+// diagonally dominant, and the reduced system of such a system is too, as
+// in the reference's Stage 1. There are no atomics, so the same rows give
+// the same bits.
 //
 // Row i of system s is at s * sys_stride + i * row_stride in every operand,
 // in x and in the dhat scratch buffer the wrapper allocates: (B, n) has row
 // stride 1 and system stride n, (n, B) row stride B and system stride 1. x
 // holds bhat during the forward sweep and is overwritten with the solution
-// on the way back.
-//
-// Bound: the serial dependency chain, not bytes. Row i needs dhat[i-1]
-// through a division, so one system is n dependent division steps forward
-// and n back, whatever the card's bandwidth. On the system-major main path
-// one thread runs 2P dependent steps while the rest of the card idles.
-//
-// Design: one thread per system, walking its rows in order. On the (B, n)
-// route consecutive rows of one thread are contiguous, and a warp's 32
-// threads read 32 addresses n apart. On the (n, B) route a warp's 32 threads
-// read 32 adjacent lanes of one row, so each step's loads are coalesced.
-// There are no padded lanes (the TPU kernel pads to 256): a thread past the
-// last system returns before touching memory, so nothing divides by zero.
+// on the way back. One thread walks one system in order: on the (n, B)
+// route a warp's 32 threads read 32 adjacent lanes of one row. A thread past
+// the last system returns before touching memory, so nothing divides by
+// zero.
 #include "common.cuh"
 
 template <typename T>

@@ -16,6 +16,7 @@ raises with nvcc's stderr; nothing falls back to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 #: One shared library per source, named after it.
 SOURCES: Tuple[str, ...] = (
@@ -141,3 +142,12 @@ def load(name: str) -> ctypes.CDLL:
             _LIBS[name] = lib
         return lib
 
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: Tuple[type, ...]) -> Any:
+    """The C entry ``symbol`` of ``csrc/<name>.cu``'s library, its argument
+    types set once (an int status return)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

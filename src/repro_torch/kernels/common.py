@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import build
 
 #: dtypes every kernel is instantiated for, with the C symbol suffix.
 KERNEL_DTYPES: Dict[torch.dtype, str] = {torch.float32: "f32", torch.float64: "f64"}
@@ -113,10 +115,6 @@ def check_kernel_operands(
     return KERNEL_DTYPES[dtype]
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def current_stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -126,3 +124,25 @@ def raise_on_error(name: str, code: int, lib: ctypes.CDLL) -> None:
     if code != 0:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed: cudaError {code} ({msg})")
+
+
+def call(
+    name: str,
+    lib: str,
+    symbol: str,
+    argtypes: Tuple[type, ...],
+    device: torch.device,
+    args: Sequence[object],
+    stream: Optional[int] = None,
+) -> None:
+    """Call a kernel's C entry with ``args`` and a stream last; raise when the
+    launch failed. Without ``stream`` it runs on the device's current stream
+    with the device made current; a caller that passes ``stream`` (a raw
+    ``cudaStream_t``) has done both, once for many launches."""
+    fn = build.entry(lib, symbol, argtypes)
+    if stream is None:
+        with torch.cuda.device(device):
+            code = fn(*args, current_stream(device))
+    else:
+        code = fn(*args, stream)
+    raise_on_error(name, code, build.load(lib))

@@ -2,20 +2,27 @@
 
 Replaces ``repro.kernels.partition_stage1`` (the ``_stage1_kernel`` Pallas
 body and the reduced-row glue of ``_stage1_impl`` / ``_stage1_impl_batched``).
-The kernel is ``csrc/partition_stage1.cu``: one thread per partition block,
-then the reduced rows. Its plain version is the reference stage,
-:func:`repro_torch.core.tridiag.partition.partition_stage1`.
+The kernel is ``csrc/partition_stage1.cu``: one CUDA block per span of
+consecutive partition blocks, staged through shared memory, each thread
+walking one block; the reduced rows come from a one-block halo in the same
+kernel or from a second kernel (:data:`FUSED_REDUCED`). Its plain version is
+the reference stage, :func:`repro_torch.core.tridiag.partition.partition_stage1`.
 
 :func:`partition_stage1_cuda_wide` replaces ``_stage1_kernel_wide`` and its
 glue ``_stage1_impl_wide`` on the interleaved layout. Its kernel is
 ``csrc/partition_stage1_wide.cu``, one thread per (block, system), and its
 plain version :func:`repro_torch.core.tridiag.layout.partition_stage1_wide`.
+
+:func:`run_stage1` and :func:`run_stage1_wide` launch the kernels without
+counting: the levels of the reduced solve (``kernels/thomas/ops.py``) run
+through them, and count as that solve's one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -29,26 +36,51 @@ STAGE1_WIDE_LAUNCHES = common.LaunchCounter("partition_stage1_wide")
 Tensor = torch.Tensor
 
 
-def _launch(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int) -> PartitionCoeffs:
+#: Assemble the reduced rows inside the spike kernel from a one-block halo
+#: (True) or in a second kernel that reads the spikes back (False). Both are
+#: timed by chip_smoke.py's kernels phase; the faster one is the default.
+FUSED_REDUCED = True
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_ARGS = (_P,) * 11 + (_LL, _LL, _LL, _I, _I, _I, _P)
+_WIDE_ARGS = (_P,) * 11 + (_LL, _LL, _I, _P)
+
+
+def run_stage1(
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int, *,
+    red_rows: Optional[int] = None, fused: bool = FUSED_REDUCED, zero_ends: bool = False,
+    stream: Optional[int] = None,
+) -> PartitionCoeffs:
+    """Launch system-major Stage 1 on contiguous (..., P*m) CUDA operands,
+    uncounted. With ``red_rows``, each system's reduced rows are the first P
+    of ``red_rows``, the rest identity rows the kernel writes: a level's next
+    operands. ``zero_ends`` reads each system's dl[0] and du[n-1] as zero;
+    ``stream``: see :func:`repro_torch.kernels.common.call`."""
     lead, n = tuple(d.shape[:-1]), d.shape[-1]
     p = n // m
+    rows = p if red_rows is None else red_rows
     suffix = common.check_kernel_operands(
         "partition_stage1", (dl, d, du, b), [d.shape] * 4
     )
-    lib = build.load("partition_stage1")
-    fn = getattr(lib, f"partition_stage1_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    y, v, w = (torch.empty(lead + (p, m - 1), dtype=d.dtype, device=d.device) for _ in range(3))
-    red = [torch.empty(lead + (p,), dtype=d.dtype, device=d.device) for _ in range(4)]
-    with torch.cuda.device(d.device):
-        code = fn(
-            *(common.ptr(t) for t in (dl, d, du, b, y, v, w, *red)),
-            math.prod(lead), p, m, common.current_stream(d.device),
-        )
-    common.raise_on_error("partition_stage1", code, lib)
-    STAGE1_LAUNCHES.add()
-    return PartitionCoeffs(y, v, w, *red)
+    spikes = torch.empty((3,) + lead + (p, m - 1), dtype=d.dtype, device=d.device)
+    red = torch.empty((4,) + lead + (rows,), dtype=d.dtype, device=d.device)
+    y, v, w = spikes.unbind(0)
+    reds = red.unbind(0)
+    args = [t.data_ptr() for t in (dl, d, du, b, y, v, w, *reds)]
+    common.call(
+        "partition_stage1", "partition_stage1", f"partition_stage1_{suffix}", _ARGS, d.device,
+        args + [math.prod(lead), p, rows, m, int(fused), int(zero_ends)], stream,
+    )
+    return PartitionCoeffs(y, v, w, *reds)
+
+
+def span_blocks(m: int, dtype: torch.dtype) -> int:
+    """Partition blocks per CUDA block of the system-major kernel at this m
+    and dtype (0 where blocks are walked from device memory)."""
+    fn = build.entry("partition_stage1", "partition_stage1_span_blocks", (_I, _I))
+    return int(fn(m, torch.empty((), dtype=dtype).element_size()))
 
 
 def _stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int, ndim: int) -> PartitionCoeffs:
@@ -63,7 +95,9 @@ def _stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int, ndim: int) -> 
     if n % m:
         raise ValueError(f"system size {n} not divisible by m={m}")
     if common.on_cuda(dl, d, du, b):
-        return _launch(dl, d, du, b, m)
+        coeffs = run_stage1(dl, d, du, b, m)
+        STAGE1_LAUNCHES.add()
+        return coeffs
     return partition_stage1(dl, d, du, b, m)
 
 
@@ -80,25 +114,33 @@ def partition_stage1_cuda_batched(
     return _stage1(dl, d, du, b, m, ndim=2)
 
 
-def _launch_wide(dlw: Tensor, dw: Tensor, duw: Tensor, bw: Tensor, m: int) -> PartitionCoeffs:
+def run_stage1_wide(
+    dlw: Tensor, dw: Tensor, duw: Tensor, bw: Tensor, m: int, *,
+    red_rows: Optional[int] = None, stream: Optional[int] = None,
+) -> PartitionCoeffs:
+    """Launch wide Stage 1 on contiguous (P, m, B) CUDA operands, uncounted.
+    With ``red_rows``, the (P, B) reduced rows are the first P of
+    ``red_rows`` rows, the rest identity rows: a level's next operands.
+    ``stream``: see :func:`repro_torch.kernels.common.call`."""
     p, _, bsz = dw.shape
+    rows = p if red_rows is None else red_rows
     suffix = common.check_kernel_operands(
         "partition_stage1_wide", (dlw, dw, duw, bw), [dw.shape] * 4
     )
-    lib = build.load("partition_stage1_wide")
-    fn = getattr(lib, f"partition_stage1_wide_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    y, v, w = (torch.empty((p, m - 1, bsz), dtype=dw.dtype, device=dw.device) for _ in range(3))
-    red = [torch.empty((p, bsz), dtype=dw.dtype, device=dw.device) for _ in range(4)]
-    with torch.cuda.device(dw.device):
-        code = fn(
-            *(common.ptr(t) for t in (dlw, dw, duw, bw, y, v, w, *red)),
-            p, bsz, m, common.current_stream(dw.device),
-        )
-    common.raise_on_error("partition_stage1_wide", code, lib)
-    STAGE1_WIDE_LAUNCHES.add()
-    return PartitionCoeffs(y, v, w, *red)
+    spikes = torch.empty((3, p, m - 1, bsz), dtype=dw.dtype, device=dw.device)
+    if rows > p:  # the kernel writes the first P rows
+        red = torch.zeros((4, rows, bsz), dtype=dw.dtype, device=dw.device)
+        red[1, p:] = 1.0
+    else:
+        red = torch.empty((4, rows, bsz), dtype=dw.dtype, device=dw.device)
+    y, v, w = spikes.unbind(0)
+    reds = red.unbind(0)
+    args = [t.data_ptr() for t in (dlw, dw, duw, bw, y, v, w, *reds)]
+    common.call(
+        "partition_stage1_wide", "partition_stage1_wide", f"partition_stage1_wide_{suffix}",
+        _WIDE_ARGS, dw.device, args + [p, bsz, m], stream,
+    )
+    return PartitionCoeffs(y, v, w, *reds)
 
 
 def partition_stage1_cuda_wide(
@@ -114,5 +156,7 @@ def partition_stage1_cuda_wide(
         if a.shape != dw.shape:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, dw has {tuple(dw.shape)}")
     if common.on_cuda(dlw, dw, duw, bw):
-        return _launch_wide(dlw, dw, duw, bw, m)
+        coeffs = run_stage1_wide(dlw, dw, duw, bw, m)
+        STAGE1_WIDE_LAUNCHES.add()
+        return coeffs
     return partition_stage1_wide(dlw, dw, duw, bw, m=m)

@@ -11,6 +11,10 @@ Its plain version is the reference stage,
 kernel is ``csrc/partition_stage3_wide.cu``, one thread per output element
 with the systems fastest, and its plain version
 :func:`repro_torch.core.tridiag.layout.partition_stage3_wide`.
+
+:func:`run_stage3` and :func:`run_stage3_wide` launch the kernels without
+counting: the levels of the reduced solve (``kernels/thomas/ops.py``) run
+through them, and count as that solve's one launch.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.core.tridiag.layout import partition_stage3_wide
 from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
 
 STAGE3_LAUNCHES = common.LaunchCounter("partition_stage3")
 STAGE3_WIDE_LAUNCHES = common.LaunchCounter("partition_stage3_wide")
@@ -31,24 +35,26 @@ STAGE3_WIDE_LAUNCHES = common.LaunchCounter("partition_stage3_wide")
 Tensor = torch.Tensor
 
 
-def _launch(y: Tensor, v: Tensor, w: Tensor, s: Tensor, left: Tensor) -> Tensor:
+_P = ctypes.c_void_p
+_ARGS = (_P,) * 6 + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P)
+_WIDE_ARGS = (_P,) * 5 + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P)
+
+
+def run_stage3(
+    y: Tensor, v: Tensor, w: Tensor, s: Tensor, left: Tensor, *, stream: Optional[int] = None
+) -> Tensor:
+    """Launch system-major Stage 3 on contiguous CUDA tensors, uncounted.
+    ``stream``: see :func:`repro_torch.kernels.common.call`."""
     lead, p, mi = tuple(y.shape[:-2]), y.shape[-2], y.shape[-1]
     m = mi + 1
     suffix = common.check_kernel_operands(
         "partition_stage3", (y, v, w, s, left), [y.shape] * 3 + [lead + (p,), lead]
     )
-    lib = build.load("partition_stage3")
-    fn = getattr(lib, f"partition_stage3_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x = torch.empty(lead + (p * m,), dtype=y.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        code = fn(
-            *(common.ptr(t) for t in (y, v, w, s, left, x)),
-            math.prod(lead), p, m, common.current_stream(y.device),
-        )
-    common.raise_on_error("partition_stage3", code, lib)
-    STAGE3_LAUNCHES.add()
+    common.call(
+        "partition_stage3", "partition_stage3", f"partition_stage3_{suffix}", _ARGS, y.device,
+        [t.data_ptr() for t in (y, v, w, s, left, x)] + [math.prod(lead), p, m], stream,
+    )
     return x
 
 
@@ -67,7 +73,9 @@ def _stage3(coeffs: PartitionCoeffs, s: Tensor, left: Optional[Tensor], ndim: in
         left = torch.zeros(s.shape[:-1], dtype=y.dtype, device=y.device)
     left = left.to(dtype=y.dtype)
     if common.on_cuda(coeffs.y, coeffs.v, coeffs.w, s, left):
-        return _launch(coeffs.y, coeffs.v, coeffs.w, s, left)
+        x = run_stage3(coeffs.y, coeffs.v, coeffs.w, s, left)
+        STAGE3_LAUNCHES.add()
+        return x
     return partition_stage3(coeffs, s, left)
 
 
@@ -90,23 +98,20 @@ def partition_stage3_cuda_batched(
     return _stage3(coeffs, s, left, ndim=2)
 
 
-def _launch_wide(y: Tensor, v: Tensor, w: Tensor, s: Tensor) -> Tensor:
+def run_stage3_wide(
+    y: Tensor, v: Tensor, w: Tensor, s: Tensor, *, stream: Optional[int] = None
+) -> Tensor:
+    """Launch wide Stage 3 on contiguous CUDA tensors, uncounted.
+    ``stream``: see :func:`repro_torch.kernels.common.call`."""
     p, mi, bsz = y.shape
     suffix = common.check_kernel_operands(
         "partition_stage3_wide", (y, v, w, s), [y.shape] * 3 + [(p, bsz)]
     )
-    lib = build.load("partition_stage3_wide")
-    fn = getattr(lib, f"partition_stage3_wide_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x = torch.empty((p, mi + 1, bsz), dtype=y.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        code = fn(
-            *(common.ptr(t) for t in (y, v, w, s, x)),
-            p, bsz, mi + 1, common.current_stream(y.device),
-        )
-    common.raise_on_error("partition_stage3_wide", code, lib)
-    STAGE3_WIDE_LAUNCHES.add()
+    common.call(
+        "partition_stage3_wide", "partition_stage3_wide", f"partition_stage3_wide_{suffix}",
+        _WIDE_ARGS, y.device, [t.data_ptr() for t in (y, v, w, s, x)] + [p, bsz, mi + 1], stream,
+    )
     return x
 
 
@@ -123,5 +128,7 @@ def partition_stage3_cuda_wide(coeffs: PartitionCoeffs, s: Tensor) -> Tensor:
     if tuple(s.shape) != (y.shape[0], y.shape[2]):
         raise ValueError(f"s has shape {tuple(s.shape)}, spikes {tuple(y.shape)}")
     if common.on_cuda(coeffs.y, coeffs.v, coeffs.w, s):
-        return _launch_wide(coeffs.y, coeffs.v, coeffs.w, s)
+        x = run_stage3_wide(coeffs.y, coeffs.v, coeffs.w, s)
+        STAGE3_WIDE_LAUNCHES.add()
+        return x
     return partition_stage3_wide(coeffs, s)

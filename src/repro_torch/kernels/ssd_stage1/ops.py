@@ -21,12 +21,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
 from repro_torch.models.layers.ssm import chunked_ssd, ssd_stage1
 
 SSD_STAGE1_LAUNCHES = common.LaunchCounter("ssd_stage1")
 #: The longest chunk the kernel takes (its shared-memory prefix sum).
 MAX_CHUNK = 1024
+
+_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 Tensor = torch.Tensor
 
@@ -51,17 +53,13 @@ def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tenso
             raise ValueError(f"ssd_stage1: {name} must be contiguous")
     if not 1 <= q <= MAX_CHUNK:
         raise ValueError(f"ssd_stage1: chunk length {q} outside 1..{MAX_CHUNK}")
-    lib = build.load("ssd_stage1")
-    fn = lib.ssd_stage1_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     y = torch.empty_like(u)
     s = torch.empty(g, nh, p, n, dtype=torch.float32, device=u.device)
     scores = torch.empty(g, q, q, dtype=torch.float32, device=u.device)  # scratch: C·Bᵀ
-    with torch.cuda.device(u.device):
-        code = fn(*(common.ptr(t) for t in (u, dac, b, c, y, s, scores)),
-                  g, q, nh, p, n, common.current_stream(u.device))
-    common.raise_on_error("ssd_stage1", code, lib)
+    common.call(
+        "ssd_stage1", "ssd_stage1", "ssd_stage1_f32", _ARGS, u.device,
+        [t.data_ptr() for t in (u, dac, b, c, y, s, scores)] + [g, q, nh, p, n],
+    )
     SSD_STAGE1_LAUNCHES.add()
     return y, s
 

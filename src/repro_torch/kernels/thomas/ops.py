@@ -1,53 +1,205 @@
-"""Batched Thomas solve: CUDA kernel wrapper.
+"""Batched Thomas solve: CUDA kernel wrapper, a recursive partition solve.
 
 Replaces ``repro.kernels.thomas`` (the ``_thomas_kernel`` Pallas body as
-reached from ``thomas_pallas`` and ``thomas_pallas_wide``). The kernel is
-``csrc/thomas.cu``: one thread per system, with a row and a system stride so
-one body serves both routes. On the main path it is the fused executor's
-device Stage 2, the reduced solve: :func:`thomas_cuda` on (B, n) rows (a 1-D
-system runs as a batch of one), :func:`thomas_cuda_wide` on the interleaved
-layout's (P, B) rows. The two routes count their launches apart. The plain
-versions are :func:`repro_torch.core.tridiag.thomas.thomas` and
+reached from ``thomas_pallas`` and ``thomas_pallas_wide``). On the main path
+it is the fused executor's device Stage 2, the reduced solve:
+:func:`thomas_cuda` on (B, n) rows (a 1-D system runs as a batch of one),
+:func:`thomas_cuda_wide` on the interleaved layout's (P, B) rows. The two
+routes count their launches apart. The plain versions are
+:func:`repro_torch.core.tridiag.thomas.thomas` and
 :func:`repro_torch.core.tridiag.layout.thomas_wide`.
+
+A chain of 2n dependent steps on one thread per system is what bounds a
+Thomas solve on this card, so on CUDA tensors a system of more than
+:data:`N0` rows is solved by the partition method applied to itself
+(:func:`solve_levels`): Stage 1 with m = :data:`R` (``csrc/partition_stage1
+.cu``, or ``partition_stage1_wide.cu`` on (n, B) rows), the reduced rows
+recursively, then Stage 3 with m = R. ``csrc/thomas.cu``'s one-thread body
+solves the last level of at most N0 rows. The answer agrees with Thomas's to
+rounding; it is not the same sequence of operations. Each call, all levels
+included, adds one to its route's launch counter and nothing to the Stage 1
+or Stage 3 counters.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.tridiag.layout import thomas_wide
 from repro_torch.core.tridiag.thomas import thomas
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
+from repro_torch.kernels.partition_stage1.ops import run_stage1, run_stage1_wide
+from repro_torch.kernels.partition_stage3.ops import run_stage3, run_stage3_wide
 
 THOMAS_LAUNCHES = common.LaunchCounter("thomas")
 THOMAS_WIDE_LAUNCHES = common.LaunchCounter("thomas_wide")
 
+#: Rows per sub-block at every level of the reduced solve.
+R = 32
+#: Base size: a level of at most N0 rows goes to the one-thread chain.
+N0 = 64
+
 Tensor = torch.Tensor
 
 
-def _launch(
-    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, nsys: int, n: int, wide: bool
+def padded_rows(n: int, r: int = R, n0: int = N0) -> int:
+    """Rows a level of ``n`` rows occupies: a multiple of ``r`` when it is
+    cut again (``n > n0``), else ``n``."""
+    return common.round_up(n, r) if n > n0 else n
+
+
+def level_sizes(n: int, r: int = R, n0: int = N0) -> List[int]:
+    """Rows per system at each level, the caller's first, the base's last:
+    1e6 → 31250 → 977 → 31 at r = 32, n0 = 64."""
+    sizes = [n]
+    while sizes[-1] > n0:
+        sizes.append(common.cdiv(sizes[-1], r))
+    return sizes
+
+
+def _level0(ops: Sequence[Tensor], rows: int, axis: int) -> List[Tensor]:
+    """The caller's operands copied into ``rows`` rows along ``axis``: the
+    rows past n are identity rows (d = 1, the rest 0), and dl[0] and du[n-1],
+    which Thomas ignores but the partition couples through, are zero. The
+    caller's tensors are never written."""
+    dl, d, du, b = ops
+    n = d.shape[axis]
+    shape = list(d.shape)
+    shape[axis] = rows
+    buf = d.new_zeros([4] + shape)
+    buf[0].narrow(axis, 1, n - 1).copy_(dl.narrow(axis, 1, n - 1))
+    buf[1].narrow(axis, 0, n).copy_(d)
+    buf[2].narrow(axis, 0, n - 1).copy_(du.narrow(axis, 0, n - 1))
+    buf[3].narrow(axis, 0, n).copy_(b)
+    if rows > n:
+        buf[1].narrow(axis, n, rows - n).fill_(1.0)
+    return list(buf)
+
+
+def _pad_rows(red: Sequence[Tensor], rows: int, axis: int) -> List[Tensor]:
+    """A level's reduced rows as the next level's operands of ``rows`` rows.
+    Rows that a stage wrote already padded are taken as they are; shorter
+    ones are copied above identity rows."""
+    p = red[1].shape[axis]
+    if p == rows:
+        return list(red)
+    shape = list(red[1].shape)
+    shape[axis] = rows
+    buf = red[1].new_zeros([4] + shape)
+    for dst, src in zip(buf, red):
+        dst.narrow(axis, 0, p).copy_(src)
+    buf[1].narrow(axis, p, rows - p).fill_(1.0)
+    return list(buf)
+
+
+def solve_levels(
+    dl: Tensor,
+    d: Tensor,
+    du: Tensor,
+    b: Tensor,
+    *,
+    stage1: Callable[..., Any],
+    stage3: Callable[[Any, Tensor], Tensor],
+    base: Callable[[Tensor, Tensor, Tensor, Tensor], Tensor],
+    wide: bool,
+    r: int = R,
+    n0: int = N0,
+    ends_ignored: bool = False,
 ) -> Tensor:
+    """Solve B tridiagonal systems by the partition method applied to itself.
+
+    Operands are (B, n) rows, or (n, B) rows with ``wide``. While a level
+    has more than ``n0`` rows, its rows (padded to a multiple of ``r`` with
+    identity rows) go through ``stage1(dl, d, du, b, m=r)`` — system-major
+    Stage 1 on (B, N) operands, or wide Stage 1 on (N/r, r, B) — whose
+    reduced rows (P per system, or already padded for the next level) are
+    the next level; ``base(dl, d, du, b)`` solves the last level, and
+    ``stage3(coeffs, s)`` — (B, N), or (N/r, r, B) — climbs back. Only the
+    first level copies the caller's operands: always, or with
+    ``ends_ignored`` (``stage1`` reads each system's dl[0] and du[n-1] as
+    zero, as Thomas ignores them) only when n needs padding. The systems
+    must not need pivoting, as in Stage 1: a strictly diagonally dominant
+    system has a strictly diagonally dominant reduced system.
+    """
+    axis = 0 if wide else 1
+    n = d.shape[axis]
+    if n <= n0:
+        return base(dl, d, du, b)
+    rows = common.round_up(n, r)
+    ops = [dl, d, du, b] if ends_ignored and rows == n else _level0((dl, d, du, b), rows, axis)
+    levels: List[Tuple[Any, int]] = []
+    while n > n0:
+        p = ops[1].shape[axis] // r
+        coeffs = stage1(*(a.reshape(p, r, -1) if wide else a for a in ops), m=r)
+        levels.append((coeffs, n))
+        ops = _pad_rows(coeffs[3:], padded_rows(p, r, n0), axis)
+        n = p
+    x = base(*ops)
+    for coeffs, rows in reversed(levels):
+        x = stage3(coeffs, x)
+        if wide:
+            x = x.reshape(-1, x.shape[-1])
+        x = x.narrow(axis, 0, rows).contiguous()
+    return x
+
+
+_P = ctypes.c_void_p
+_BASE_ARGS = (_P,) * 6 + (ctypes.c_longlong,) * 4 + (_P,)
+
+
+def _launch_base(
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, wide: bool, stream: Optional[int] = None
+) -> Tensor:
+    """csrc/thomas.cu's one-thread-per-system body on contiguous (B, n) or,
+    with ``wide``, (n, B) CUDA operands, uncounted. ``stream``: see
+    :func:`repro_torch.kernels.common.call`."""
     name = "thomas_wide" if wide else "thomas"
     suffix = common.check_kernel_operands(name, (dl, d, du, b), [d.shape] * 4)
-    lib = build.load("thomas")
-    fn = getattr(lib, f"thomas_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     # (n, B) rows: row stride B, system stride 1; (B, n): 1 and n.
+    (n, nsys) = tuple(d.shape) if wide else tuple(d.shape)[::-1]
     rs, ss = (nsys, 1) if wide else (1, n)
-    x = torch.empty_like(d)
-    dhat = torch.empty_like(d)  # scratch: the modified diagonal
-    with torch.cuda.device(d.device):
-        code = fn(
-            *(common.ptr(t) for t in (dl, d, du, b, x, dhat)),
-            nsys, n, rs, ss, common.current_stream(d.device),
-        )
-    common.raise_on_error(name, code, lib)
-    (THOMAS_WIDE_LAUNCHES if wide else THOMAS_LAUNCHES).add()
+    x, dhat = torch.empty((2,) + tuple(d.shape), dtype=d.dtype, device=d.device).unbind(0)
+    common.call(
+        name, "thomas", f"thomas_{suffix}", _BASE_ARGS, d.device,
+        [t.data_ptr() for t in (dl, d, du, b, x, dhat)] + [nsys, n, rs, ss], stream,
+    )
     return x
+
+
+def thomas_levels_cuda(
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *, wide: bool, r: int = R, n0: int = N0
+) -> Tensor:
+    """The reduced solve on CUDA operands, (B, n) or with ``wide`` (n, B),
+    through the Stage 1, Stage 3 and base kernels, uncounted: every launch on
+    the device's current stream, looked up once."""
+    common.check_kernel_operands("thomas_wide" if wide else "thomas", (dl, d, du, b), [d.shape] * 4)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        if wide:
+            def stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *, m: int) -> Any:
+                return run_stage1_wide(dl, d, du, b, m, red_rows=padded_rows(d.shape[0], r, n0),
+                                       stream=stream)
+
+            def stage3(c: Any, s: Tensor) -> Tensor:
+                return run_stage3_wide(c.y, c.v, c.w, s, stream=stream)
+        else:
+            left = d.new_zeros(d.shape[0])
+
+            def stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *, m: int) -> Any:
+                return run_stage1(dl, d, du, b, m, red_rows=padded_rows(d.shape[-1] // m, r, n0),
+                                  zero_ends=True, stream=stream)
+
+            def stage3(c: Any, s: Tensor) -> Tensor:
+                return run_stage3(c.y, c.v, c.w, s, left, stream=stream)
+
+        def base(dl: Tensor, d: Tensor, du: Tensor, b: Tensor) -> Tensor:
+            return _launch_base(dl, d, du, b, wide, stream)
+
+        return solve_levels(dl, d, du, b, stage1=stage1, stage3=stage3, base=base, wide=wide,
+                            r=r, n0=n0, ends_ignored=not wide)
 
 
 def _check(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, n: int) -> None:
@@ -64,8 +216,9 @@ def thomas_cuda(dl: Tensor, d: Tensor, du: Tensor, b: Tensor) -> Tensor:
         raise ValueError(f"thomas takes (n,) or (B, n) operands, got {tuple(d.shape)}")
     _check(dl, d, du, b, d.shape[-1])
     if common.on_cuda(dl, d, du, b):
-        nsys, n = (1, d.shape[0]) if d.ndim == 1 else tuple(d.shape)
-        return _launch(dl, d, du, b, nsys, n, wide=False)
+        x = thomas_levels_cuda(*(a.reshape(-1, a.shape[-1]) for a in (dl, d, du, b)), wide=False)
+        THOMAS_LAUNCHES.add()
+        return x.reshape(d.shape)
     return thomas(dl, d, du, b)
 
 
@@ -76,6 +229,7 @@ def thomas_cuda_wide(dl: Tensor, d: Tensor, du: Tensor, b: Tensor) -> Tensor:
         raise ValueError(f"thomas_wide takes interleaved (n, B) operands, got {tuple(d.shape)}")
     _check(dl, d, du, b, d.shape[0])
     if common.on_cuda(dl, d, du, b):
-        n, nsys = tuple(d.shape)
-        return _launch(dl, d, du, b, nsys, n, wide=True)
+        x = thomas_levels_cuda(dl, d, du, b, wide=True)
+        THOMAS_WIDE_LAUNCHES.add()
+        return x
     return thomas_wide(dl, d, du, b)

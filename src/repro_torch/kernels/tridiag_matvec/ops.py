@@ -15,9 +15,11 @@ import ctypes
 import torch
 
 from repro_torch.core.tridiag.matvec import tridiag_matvec
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
 
 MATVEC_LAUNCHES = common.LaunchCounter("tridiag_matvec")
+
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong, ctypes.c_void_p)
 
 Tensor = torch.Tensor
 
@@ -33,14 +35,10 @@ def tridiag_matvec_cuda(dl: Tensor, d: Tensor, du: Tensor, x: Tensor) -> Tensor:
         return tridiag_matvec(dl, d, du, x)
     n = d.shape[0]
     suffix = common.check_kernel_operands("tridiag_matvec", (dl, d, du, x), [(n,)] * 4)
-    lib = build.load("tridiag_matvec")
-    fn = getattr(lib, f"tridiag_matvec_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     r = torch.empty_like(d)
-    with torch.cuda.device(d.device):
-        code = fn(*(common.ptr(t) for t in (dl, d, du, x, r)), n,
-                  common.current_stream(d.device))
-    common.raise_on_error("tridiag_matvec", code, lib)
+    common.call(
+        "tridiag_matvec", "tridiag_matvec", f"tridiag_matvec_{suffix}", _ARGS, d.device,
+        [t.data_ptr() for t in (dl, d, du, x, r)] + [n],
+    )
     MATVEC_LAUNCHES.add()
     return r
