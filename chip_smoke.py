@@ -16,13 +16,15 @@ Phases:
    tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events,
    the plain version's time and the bound (bytes over 3.35 TB/s or
    operations over the peak rate, whichever is larger); for the matvec the
-   CSR sparse product's time. Stage 1 is also timed with its reduced rows
-   from a second kernel, the choice it does not take, and held against its
-   plain version at block sizes m = 2 ... 100. Every Thomas row
-   prints its level sizes and must give the same bits twice; the reduced
-   solve is also held against the plain Thomas loop at the edges of its
-   level structure (both routes, both dtypes, B = 1, 3, 64), and a sweep of
-   the sub-block size r at B = 1, n = 1e6 fp64 is printed.
+   CSR sparse product's time. Stage 1 is also held against its plain
+   version at block sizes m = 2 ... 100. Every Thomas row prints its level
+   sizes and its time at a base of n0 = 64 rows, and must give the same
+   bits twice; the reduced solve is also held against the fp64 host oracle
+   ``thomas_numpy`` at the edges of its level structure and with large
+   ignored couplings dl[0], du[n-1] at sizes r divides (both routes, both
+   dtypes, B = 1, 3, 64). Two sweeps are printed: the sub-block size r at
+   B = 1, n = 1e6 fp64, and the levels against the one-thread base alone
+   at n = 65 ... 2000 (the base size n0).
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -42,9 +44,10 @@ Phases:
    kernel's launch counter must rise.
 4. ``breakdown``: where the time of one n = 1e7 fp64 solve and of one
    interleaved ``solve_batched`` of 1024 x 10,000 fp64 goes, stage by
-   stage, from CUDA events and the host clock around the copies, and how
-   long the host takes to enqueue the n = 1e7 fused path and its reduced
-   solve.
+   stage, from CUDA events and the host clock around the copies, how long
+   the host takes to enqueue the n = 1e7 fused path and its reduced solve,
+   and, from ``torch.profiler``, each one's device busy time, idle share
+   and largest device entries (the wide reduced solve's too).
 5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
@@ -127,6 +130,18 @@ def cuda_ms(fn: Callable[[], Any], reps: int, warmup: int = 2) -> float:
     return timed_cuda(fn, reps, warmup)[0]
 
 
+def alternating_ms(fns: List[Callable[[], Any]], reps: int) -> List[float]:
+    """Median CUDA-event time of each of ``fns``, called in turn rep after
+    rep, so that a drift of the host's speed falls on all of them alike."""
+    for fn in fns:
+        fn()
+    times: List[List[float]] = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            ts.append(cuda_ms(fn, reps=1, warmup=0))
+    return [statistics.median(ts) for ts in times]
+
+
 def host_ms(fn: Callable[[], Any], reps: int = 3) -> float:
     """Median host-clock time of ``fn`` (a copy that ends on the host or
     blocks on one), bracketed by synchronisations."""
@@ -152,6 +167,39 @@ def enqueue_ms(fn: Callable[[], Any], reps: int = 3) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, top: int = 5) -> None:
+    """``fn`` under ``torch.profiler``: the device's busy time a call (the
+    sum of its kernels' and copies' device times; one stream, so they do
+    not overlap), its idle share against ``ms`` (the call's CUDA-event time,
+    taken without the profiler), and the largest device entries with their
+    count a call. One call warms the profiler up before the ``reps`` it
+    records, each of which ends on a synchronisation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for _ in range(1 + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    entries = []
+    for e in prof.key_averages():
+        # Host-side ops also carry their kernels' time, and the step marks
+        # span the calls: only the device's own entries count.
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        entries.append((us / reps / 1e3, e.count // reps, e.key))
+    assert entries, f"{label}: the profiler recorded no device activity"
+    entries.sort(reverse=True)
+    busy = sum(t for t, _, _ in entries)
+    log(f"    profiler, {label}: device busy {busy:.4f} ms a call against {ms:.4f} ms "
+        f"(idle share {1 - busy / ms:.3f}); largest: "
+        + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for t, c, k in entries[:top]))
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> Tuple[float, str]:
@@ -187,7 +235,6 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         partition_stage1_cuda,
         partition_stage1_cuda_batched,
         partition_stage1_cuda_wide,
-        run_stage1,
         span_blocks,
     )
     from repro_torch.kernels.partition_stage3.ops import (
@@ -275,22 +322,22 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         got, ms = check(name, dtype, lambda: kernel(*ops4), lambda: plain(*ops4),
                         5 * bsz * tn * es, 8 * bsz * tn, **kw)
         assert torch.equal(kernel(*ops4), got), f"{name}: two calls differ"
+        rows2 = ops4 if wide else tuple(a.reshape(-1, tn) for a in ops4)
+        at_n0, at_64 = alternating_ms([lambda: thomas_levels_cuda(*rows2, wide=wide),
+                                       lambda: thomas_levels_cuda(*rows2, wide=wide, n0=64)],
+                                      reps=kw.get("reps", 20))
         log(f"    levels {' -> '.join(map(str, level_sizes(tn)))} (r={R}, n0={N0}); "
-            f"two calls bit-identical")
+            f"two calls bit-identical; alternating: n0={N0} {at_n0:.4f} ms, n0=64 "
+            f"({' -> '.join(map(str, level_sizes(tn, n0=64)))}) {at_64:.4f} ms")
         return ms
 
     def check_stage1(name: str, dtype: torch.dtype, ops4: Tuple[torch.Tensor, ...],
                      batched: bool, nbytes: float, nops: float) -> Any:
-        """A system-major Stage 1 row, and the same call with its reduced
-        rows from the second kernel (the choice the wrapper does not take)."""
+        """A system-major Stage 1 row."""
         wrapper = partition_stage1_cuda_batched if batched else partition_stage1_cuda
-        c, ms = check(name, dtype, lambda: wrapper(*ops4, m=M),
-                      lambda: partition_stage1(*ops4, M), nbytes, nops)
-        two = run_stage1(*ops4, M, fused=False)
-        assert all(torch.equal(a, b) for a, b in zip(c, two)), f"{name}: fused and two-kernel differ"
-        two_ms = cuda_ms(lambda: run_stage1(*ops4, M, fused=False), reps=20)
-        log(f"    {span_blocks(M, dtype)} blocks a span; reduced rows from the halo {ms:.4f} ms, "
-            f"from a second kernel {two_ms:.4f} ms (same bits)")
+        c, _ = check(name, dtype, lambda: wrapper(*ops4, m=M),
+                     lambda: partition_stage1(*ops4, M), nbytes, nops)
+        log(f"    {span_blocks(M, dtype)} blocks a span")
         return c
 
     def wide_ops(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
@@ -333,11 +380,12 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             check_thomas(tag, dtype, es, red, reps=10, plain_reps=1, plain_warmup=0)
             # The sub-block size of the levels, swept on these rows.
             red2 = tuple(a[None] for a in red)
-            sweep = {r: cuda_ms(lambda: thomas_levels_cuda(*red2, wide=False, r=r), reps=20)
-                     for r in (8, 16, 32)}
+            rs = (8, 16, 32)
+            sweep = alternating_ms([lambda r=r: thomas_levels_cuda(*red2, wide=False, r=r)
+                                    for r in rs], reps=30)
             log("    r sweep at B=1, n=1e6 fp64: " + "; ".join(
                 f"r={r} ({' -> '.join(map(str, level_sizes(p, r)))}) {t:.4f} ms"
-                for r, t in sweep.items()) + f"; chosen r={R}")
+                for r, t in zip(rs, sweep)) + f"; chosen r={R}")
         del dl, d, du, b, c, s, red
 
         if dtype == torch.float32:
@@ -403,28 +451,32 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
                          plain_reps=2, plain_warmup=1)
 
         thomas_edges(dev, np_dtype, dtype)
+        thomas_ignored_ends(dev, np_dtype, dtype)
         stage1_edges(dev, np_dtype, dtype)
+        if dtype == torch.float64:
+            n0_sweep(dev)
 
     lm_kernel_rows(dev, check)
     return rows
 
 
 def thomas_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
-    """The reduced solve on both routes against the plain Thomas loop at the
-    edges of its level structure: no level, the base at its edges, one, two
-    and three levels; B = 1, 3, 64 (the plain loop runs once on the 64
-    systems: it treats each system alone, so its first B rows are the answer
-    for B systems). Two calls must give the same bits."""
-    from repro_torch.core.tridiag.thomas import thomas
+    """The reduced solve on both routes at the edges of its level structure
+    (no level, the base at its edges, one, two and three levels; B = 1, 3,
+    64) against the fp64 host oracle ``thomas_numpy``, which takes the 64
+    systems at once (at the three-level size the plain PyTorch loop would
+    take minutes). Two calls must give the same bits."""
+    from repro_torch.core.tridiag.reference import thomas_numpy
     from repro_torch.kernels.common import assert_allclose_by_dtype
     from repro_torch.kernels.thomas.ops import N0, R, level_sizes, thomas_cuda, thomas_cuda_wide
 
     sizes = (1, 2, N0, N0 + 1, R * N0 - 1, R * N0 + 1, R * R * N0 + 1)
     errs = []
-    for wide in (False, True):
-        for n in sizes:
-            ops = [torch.as_tensor(a, device=dev) for a in system(n, 500 + n, np_dtype, batch=(64,))[:4]]
-            want = thomas(*ops)
+    for n in sizes:
+        host = system(n, 500 + n, np_dtype, batch=(64,))[:4]
+        want = thomas_numpy(*host)
+        ops = [torch.as_tensor(a, device=dev) for a in host]
+        for wide in (False, True):
             for bsz in (1, 3, 64):
                 sub = [a[:bsz].T.contiguous() if wide else a[:bsz].contiguous() for a in ops]
                 kernel = thomas_cuda_wide if wide else thomas_cuda
@@ -435,23 +487,75 @@ def thomas_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
                 errs.append(max_err(got, want[:bsz]))
     log(f"  thomas / thomas_wide at the level edges, {np_dtype.__name__}: n in {sizes} "
         f"(levels of the last: {' -> '.join(map(str, level_sizes(sizes[-1])))}), B in (1, 3, 64), "
-        f"both routes: max_abs_err={max(errs):.3e}, two calls bit-identical")
+        f"both routes: max_abs_err={max(errs):.3e} against thomas_numpy, two calls bit-identical")
+
+
+def thomas_ignored_ends(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
+    """Thomas ignores each system's dl[0] and du[n-1]; the partition couples
+    through them. At sizes r divides, the (B, n) route reads the caller's
+    operands with those couplings read as zero in Stage 1, and the wide
+    route copies them zeroed. Large couplings (+-1e3) must give the
+    oracle's answer on the zeroed operands (``make_diag_dominant_system``
+    zeroes both), and stay in the caller's tensors; B = 1, 3, 64 (systems
+    meet inside a batch)."""
+    from repro_torch.core.tridiag.reference import thomas_numpy
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.kernels.thomas.ops import N0, R, level_sizes, thomas_cuda, thomas_cuda_wide
+
+    sizes = (R * N0, R * R * N0)
+    errs = []
+    for n in sizes:
+        host = [np.array(a) for a in system(n, 900 + n, np_dtype, batch=(64,))[:4]]
+        want = thomas_numpy(*host)
+        host[0][:, 0] = 1e3
+        host[2][:, -1] = -1e3
+        ops = [torch.as_tensor(a, device=dev) for a in host]
+        for wide in (False, True):
+            for bsz in (1, 3, 64):
+                sub = [a[:bsz].T.contiguous() if wide else a[:bsz].contiguous() for a in ops]
+                kept = [a.clone() for a in sub]
+                got = (thomas_cuda_wide if wide else thomas_cuda)(*sub)
+                assert all(torch.equal(a, k) for a, k in zip(sub, kept)), (wide, n, bsz)
+                got = got.T if wide else got
+                assert_allclose_by_dtype(got, want[:bsz], dtype)
+                errs.append(max_err(got, want[:bsz]))
+    log(f"  thomas / thomas_wide with dl[0] = 1e3, du[n-1] = -1e3, {np_dtype.__name__}: "
+        f"n in {sizes} (levels {[level_sizes(n) for n in sizes]}), B in (1, 3, 64), both routes: "
+        f"max_abs_err={max(errs):.3e} against thomas_numpy on zeroed couplings; "
+        f"caller's tensors unchanged")
+
+
+def n0_sweep(dev: torch.device) -> None:
+    """The base size n0: one level and the one-thread base at n0 = 64
+    against the base alone (n0 = n) on the same fp64 rows, both through
+    the reduced solve's entry, for n = 65 ... 2000 (one level: n/R <= 64)
+    on the (B, n) route at B = 1 and 64 and the wide route at B = 64. Where
+    the base alone is faster, a larger n0 is. The two calls alternate, so
+    the host's drift between calls falls on both."""
+    from repro_torch.kernels.thomas.ops import N0, thomas_levels_cuda
+
+    for wide, bsz in ((False, 1), (False, 64), (True, 64)):
+        cells = []
+        for n in (65, 100, 150, 200, 300, 500, 700, 1000, 2000):
+            ops = [torch.as_tensor(a, device=dev) for a in system(n, 800 + n, np.float64, batch=(bsz,))[:4]]
+            if wide:
+                ops = [a.T.contiguous() for a in ops]
+            lv, ch = alternating_ms([lambda: thomas_levels_cuda(*ops, wide=wide, n0=64),
+                                     lambda: thomas_levels_cuda(*ops, wide=wide, n0=n)], reps=30)
+            cells.append(f"n={n} {lv:.4f}/{ch:.4f}")
+        route = "thomas_wide" if wide else "thomas"
+        log(f"    n0 sweep, {route} B={bsz} fp64, ms with one level / base alone: "
+            + "; ".join(cells) + f"; chosen N0={N0}")
 
 
 def stage1_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
     """System-major Stage 1 against its plain version over the block sizes
     it takes: the smallest, the main path's m, the reduced solve's R, the
     largest staged through shared memory and the first walked from device
-    memory; B = 3 systems of P = 1000 blocks (a ragged last span). The
-    reduced rows from the halo and from the second kernel must agree bit
-    for bit."""
+    memory; B = 3 systems of P = 1000 blocks (a ragged last span)."""
     from repro_torch.core.tridiag.partition import partition_stage1
     from repro_torch.kernels.common import assert_allclose_by_dtype
-    from repro_torch.kernels.partition_stage1.ops import (
-        partition_stage1_cuda_batched,
-        run_stage1,
-        span_blocks,
-    )
+    from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_batched, span_blocks
     from repro_torch.kernels.thomas.ops import R
 
     ms = (2, 3, M, R, 64, 65, 100)
@@ -462,12 +566,9 @@ def stage1_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
         for g, w in zip(got, partition_stage1(*ops, m)):
             assert_allclose_by_dtype(g, w, dtype)
             errs.append(max_err(g, w))
-        if span_blocks(m, dtype):
-            two = run_stage1(*ops, m, fused=False)
-            assert all(torch.equal(a, b) for a, b in zip(got, two)), f"stage1 m={m}: halo and second kernel differ"
     log(f"  partition_stage1 at the block-size edges, {np_dtype.__name__}: m in {ms} "
         f"(blocks a span: {[span_blocks(m, dtype) for m in ms]}), B=3, P=1000: "
-        f"max_abs_err={max(errs):.3e}, halo and second kernel bit-identical")
+        f"max_abs_err={max(errs):.3e}")
 
 
 def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -> None:
@@ -794,6 +895,8 @@ def breakdown_phase(dev: torch.device) -> None:
     log(f"    host enqueue: fused_enqueue_ms="
         f"{enqueue_ms(lambda: _fused(plan, CudaBackend(), *ops)):.3f} "
         f"reduced_solve_enqueue_ms={enqueue_ms(lambda: thomas_cuda(*red)):.3f}")
+    device_profile("fused path n=1e7", lambda: _fused(plan, CudaBackend(), *ops), fused)
+    device_profile("reduced solve B=1, n=1e6", lambda: thomas_cuda(*red), s2)
     del host, ops, c, red, s, x
     interleaved_breakdown(dev)
 
@@ -822,12 +925,15 @@ def interleaved_breakdown(dev: torch.device) -> None:
     red = (c.red_dl, c.red_d, c.red_du, c.red_b)
     s2 = cuda_ms(lambda: thomas_cuda_wide(*red), reps=5)
     s = thomas_cuda_wide(*red)
+    device_profile("wide reduced solve P=1000, B=1024", lambda: thomas_cuda_wide(*red), s2)
     s3 = cuda_ms(lambda: partition_stage3_cuda_wide(c, s), reps=5)
     xw = partition_stage3_cuda_wide(c, s)
     scatter = cuda_ms(lambda: layout.deinterleave(xw, sizes, M), reps=5)
     x = layout.deinterleave(xw, sizes, M)
     d2h = host_ms(lambda: x.cpu())
     device = cuda_ms(lambda: _fused_interleaved(plan, CudaBackend(), *fused), reps=5)
+    device_profile("interleaved device path 1024x10000", lambda: _fused_interleaved(plan, CudaBackend(), *fused),
+                   device)
     log(f"  solve_batched 1024x10000 fp64 interleaved: h2d_ms={h2d:.3f} fuse_ms={fuse:.3f} "
         f"interleave_ms={gather:.3f} stage1_wide_ms={s1:.3f} thomas_wide_ms={s2:.3f} "
         f"stage3_wide_ms={s3:.3f} deinterleave_ms={scatter:.3f} d2h_ms={d2h:.3f} "

@@ -42,19 +42,19 @@
 //      through device memory.
 //   3. The spikes of the span (TB*(m-1) contiguous values each) go back to
 //      device memory from shared memory with coalesced stores.
-//   4. The reduced rows need the next block's first spike row. With
-//      `fused`, spans overlap by one block: the last thread of a span walks
-//      the next span's first block (a halo) and stores nothing for it, and
-//      every other thread assembles its reduced row from shared memory. The
-//      other choice is a second kernel on the same stream that reads the
-//      spikes back from device memory. The wrapper picks one (both are
-//      timed by chip_smoke.py's kernels phase). The next-block shift stops
-//      at each system's last block (zero past it), so it never crosses from
+//   4. The reduced rows need the next block's first spike row, so spans
+//      overlap by one block: the last thread of a span walks the next
+//      span's first block (a halo) and stores nothing for it, and every
+//      other thread assembles its reduced row from shared memory. (A second
+//      kernel reading the spikes back from device memory took 32-45 % more
+//      time on an H100; PERF.md.) The next-block shift stops at
+//      each system's last block (zero past it), so it never crosses from
 //      one system into the next.
 // A block is one thread's work and its arithmetic does not depend on the
 // span it falls in, so chunked and unchunked Stage 1 agree bit for bit.
 // Blocks of more than kMaxTileM rows (no shared-memory tile fits a useful
-// span) are walked straight from device memory by one thread each.
+// span) are walked straight from device memory by one thread each, and a
+// second kernel assembles their reduced rows.
 #include "common.cuh"
 
 // Largest m staged through shared memory, and the tile budget per CUDA
@@ -110,7 +110,7 @@ __device__ __forceinline__ void reduced_row(T aL, T bL, T cL, T dL, T y_last, T 
   }
 }
 
-template <typename T, bool kFused>
+template <typename T>
 __global__ void stage1_tile_kernel(const T* __restrict__ dl, const T* __restrict__ d,
                                    const T* __restrict__ du, const T* __restrict__ b,
                                    T* __restrict__ y, T* __restrict__ v, T* __restrict__ w,
@@ -126,7 +126,7 @@ __global__ void stage1_tile_kernel(const T* __restrict__ dl, const T* __restrict
   T* s_du = s_d + tb * pitch;
   T* s_b = s_du + tb * pitch;
 
-  const int own = kFused ? tb - 1 : tb;  // blocks whose results this span stores
+  const int own = tb - 1;  // blocks whose results this span stores; the last is the halo
   const long long g0 = static_cast<long long>(blockIdx.x) * own;
   const int nb = static_cast<int>(min(static_cast<long long>(tb), nblocks - g0));  // loaded
   const int nown = min(own, nb);
@@ -199,10 +199,10 @@ __global__ void stage1_tile_kernel(const T* __restrict__ dl, const T* __restrict
   }
   __syncthreads();
 
-  // 4 (fused). Reduced rows from shared memory: the block's last row (row
+  // 4. Reduced rows from shared memory: the block's last row (row
   // m-1, untouched by the walk), its last spike row, and the next block's
   // first spike row, which the halo provides at the span's end.
-  if (kFused && t < nown) {
+  if (t < nown) {
     const long long g = g0 + t;
     const int o = t * pitch;
     const bool last = (g % bps) + 1 == bps;
@@ -294,8 +294,9 @@ __global__ void stage1_direct_kernel(const T* __restrict__ dl, const T* __restri
   }
 }
 
-// The second kernel of the unfused choice: one thread per block reads its
-// last row, its last spike row and the next block's first spike row back.
+// The reduced rows of blocks walked from device memory: one thread per
+// block reads its last row, its last spike row and the next block's first
+// spike row back.
 template <typename T>
 __global__ void stage1_reduced_kernel(const T* __restrict__ dl, const T* __restrict__ d,
                                       const T* __restrict__ du, const T* __restrict__ b,
@@ -322,7 +323,7 @@ __global__ void stage1_reduced_kernel(const T* __restrict__ dl, const T* __restr
               red_dl, red_d, red_du, red_b, g, bps, red_ss);
 }
 
-template <typename T, bool kFused>
+template <typename T>
 static cudaError_t launch_tiles(const T* dl, const T* d, const T* du, const T* b, T* y, T* v,
                                 T* w, T* red_dl, T* red_d, T* red_du, T* red_b,
                                 long long nblocks, long long bps, long long red_ss, int m,
@@ -332,14 +333,13 @@ static cudaError_t launch_tiles(const T* dl, const T* d, const T* du, const T* b
   // Above 48 KB of dynamic shared memory needs the attribute (per device,
   // so it is set at every such launch).
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(stage1_tile_kernel<T, kFused>,
+    cudaError_t err = cudaFuncSetAttribute(stage1_tile_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int own = kFused ? tb - 1 : tb;
-  const long long spans = (nblocks + own - 1) / own;
-  stage1_tile_kernel<T, kFused><<<static_cast<unsigned int>(spans), tb, smem, s>>>(
+  const long long spans = (nblocks + tb - 2) / (tb - 1);  // tb - 1 owned blocks a span
+  stage1_tile_kernel<T><<<static_cast<unsigned int>(spans), tb, smem, s>>>(
       dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b, nblocks, bps, red_ss, m, zero_ends);
   return cudaGetLastError();
 }
@@ -348,7 +348,7 @@ template <typename T>
 static int launch_stage1(const void* dl_, const void* d_, const void* du_, const void* b_,
                          void* y_, void* v_, void* w_, void* red_dl_, void* red_d_,
                          void* red_du_, void* red_b_, long long nsys, long long bps,
-                         long long red_ss, int m, int fused, int zero_ends_, void* stream) {
+                         long long red_ss, int m, int zero_ends_, void* stream) {
   const bool zero_ends = zero_ends_ != 0;
   const long long nblocks = nsys * bps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -364,19 +364,13 @@ static int launch_stage1(const void* dl_, const void* d_, const void* du_, const
   T* red_d = static_cast<T*>(red_d_);
   T* red_du = static_cast<T*>(red_du_);
   T* red_b = static_cast<T*>(red_b_);
-  cudaError_t err;
-  if (m <= kMaxTileM && fused) {
-    return static_cast<int>(launch_tiles<T, true>(dl, d, du, b, y, v, w, red_dl, red_d, red_du,
-                                                  red_b, nblocks, bps, red_ss, m, zero_ends, s));
-  }
   if (m <= kMaxTileM) {
-    err = launch_tiles<T, false>(dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b, nblocks,
-                                 bps, red_ss, m, zero_ends, s);
-  } else {
-    stage1_direct_kernel<T><<<repro_grid(nblocks), REPRO_THREADS, 0, s>>>(
-        dl, d, du, b, y, v, w, nblocks, bps, m, zero_ends);
-    err = cudaGetLastError();
+    return static_cast<int>(launch_tiles<T>(dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b,
+                                            nblocks, bps, red_ss, m, zero_ends, s));
   }
+  stage1_direct_kernel<T><<<repro_grid(nblocks), REPRO_THREADS, 0, s>>>(
+      dl, d, du, b, y, v, w, nblocks, bps, m, zero_ends);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   stage1_reduced_kernel<T><<<repro_grid(nblocks), REPRO_THREADS, 0, s>>>(
       dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b, nblocks, bps, red_ss, m, zero_ends);
@@ -384,24 +378,23 @@ static int launch_stage1(const void* dl_, const void* d_, const void* du_, const
 }
 
 // bps: partition blocks per system; red_ss: the reduced rows' system
-// stride (>= bps); fused: assemble the reduced rows in the spike kernel;
-// zero_ends: read each system's dl[0] and du[n-1] as zero.
+// stride (>= bps); zero_ends: read each system's dl[0] and du[n-1] as zero.
 extern "C" int partition_stage1_f32(const void* dl, const void* d, const void* du,
                                     const void* b, void* y, void* v, void* w,
                                     void* red_dl, void* red_d, void* red_du, void* red_b,
                                     long long nsys, long long bps, long long red_ss, int m,
-                                    int fused, int zero_ends, void* stream) {
+                                    int zero_ends, void* stream) {
   return launch_stage1<float>(dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b, nsys, bps,
-                              red_ss, m, fused, zero_ends, stream);
+                              red_ss, m, zero_ends, stream);
 }
 
 extern "C" int partition_stage1_f64(const void* dl, const void* d, const void* du,
                                     const void* b, void* y, void* v, void* w,
                                     void* red_dl, void* red_d, void* red_du, void* red_b,
                                     long long nsys, long long bps, long long red_ss, int m,
-                                    int fused, int zero_ends, void* stream) {
+                                    int zero_ends, void* stream) {
   return launch_stage1<double>(dl, d, du, b, y, v, w, red_dl, red_d, red_du, red_b, nsys,
-                               bps, red_ss, m, fused, zero_ends, stream);
+                               bps, red_ss, m, zero_ends, stream);
 }
 
 // Partition blocks per CUDA block (span) for blocks of m rows of es bytes;

@@ -35,7 +35,11 @@
 // stride 1 and system stride n, (n, B) row stride B and system stride 1. x
 // holds bhat during the forward sweep and is overwritten with the solution
 // on the way back. One thread walks one system in order: on the (n, B)
-// route a warp's 32 threads read 32 adjacent lanes of one row. A thread past
+// route a warp's 32 threads read 32 adjacent lanes of one row. On the (B, n)
+// route they read rows n apart, so each load a warp issues is one L1
+// wavefront per active lane, in every step of the chain. A block is
+// therefore kThreads = 8 threads (a warp with 8 lanes active), so a step
+// costs 8 wavefronts a load and more systems go to more SMs. A thread past
 // the last system returns before touching memory, so nothing divides by
 // zero.
 #include "common.cuh"
@@ -81,7 +85,9 @@ static int launch_thomas(const void* dl, const void* d, const void* du, const vo
                          void* x, void* dhat, long long nsys, long long n, long long rs,
                          long long ss, void* stream) {
   if (nsys == 0 || n == 0) return static_cast<int>(cudaGetLastError());
-  thomas_kernel<T><<<repro_grid(nsys), REPRO_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int kThreads = 8;  // see the note above
+  const unsigned int blocks = static_cast<unsigned int>((nsys + kThreads - 1) / kThreads);
+  thomas_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(dl), static_cast<const T*>(d), static_cast<const T*>(du),
       static_cast<const T*>(b), static_cast<T*>(x), static_cast<T*>(dhat), nsys, n, rs, ss);
   return static_cast<int>(cudaGetLastError());

@@ -5,8 +5,9 @@ body and the reduced-row glue of ``_stage1_impl`` / ``_stage1_impl_batched``).
 The kernel is ``csrc/partition_stage1.cu``: one CUDA block per span of
 consecutive partition blocks, staged through shared memory, each thread
 walking one block; the reduced rows come from a one-block halo in the same
-kernel or from a second kernel (:data:`FUSED_REDUCED`). Its plain version is
-the reference stage, :func:`repro_torch.core.tridiag.partition.partition_stage1`.
+kernel (blocks of more than 64 rows are walked from device memory, their
+reduced rows assembled by a second kernel). Its plain version is the
+reference stage, :func:`repro_torch.core.tridiag.partition.partition_stage1`.
 
 :func:`partition_stage1_cuda_wide` replaces ``_stage1_kernel_wide`` and its
 glue ``_stage1_impl_wide`` on the interleaved layout. Its kernel is
@@ -36,22 +37,16 @@ STAGE1_WIDE_LAUNCHES = common.LaunchCounter("partition_stage1_wide")
 Tensor = torch.Tensor
 
 
-#: Assemble the reduced rows inside the spike kernel from a one-block halo
-#: (True) or in a second kernel that reads the spikes back (False). Both are
-#: timed by chip_smoke.py's kernels phase; the faster one is the default.
-FUSED_REDUCED = True
-
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_ARGS = (_P,) * 11 + (_LL, _LL, _LL, _I, _I, _I, _P)
+_ARGS = (_P,) * 11 + (_LL, _LL, _LL, _I, _I, _P)
 _WIDE_ARGS = (_P,) * 11 + (_LL, _LL, _I, _P)
 
 
 def run_stage1(
     dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int, *,
-    red_rows: Optional[int] = None, fused: bool = FUSED_REDUCED, zero_ends: bool = False,
-    stream: Optional[int] = None,
+    red_rows: Optional[int] = None, zero_ends: bool = False, stream: Optional[int] = None,
 ) -> PartitionCoeffs:
     """Launch system-major Stage 1 on contiguous (..., P*m) CUDA operands,
     uncounted. With ``red_rows``, each system's reduced rows are the first P
@@ -71,7 +66,7 @@ def run_stage1(
     args = [t.data_ptr() for t in (dl, d, du, b, y, v, w, *reds)]
     common.call(
         "partition_stage1", "partition_stage1", f"partition_stage1_{suffix}", _ARGS, d.device,
-        args + [math.prod(lead), p, rows, m, int(fused), int(zero_ends)], stream,
+        args + [math.prod(lead), p, rows, m, int(zero_ends)], stream,
     )
     return PartitionCoeffs(y, v, w, *reds)
 

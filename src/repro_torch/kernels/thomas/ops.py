@@ -39,8 +39,11 @@ THOMAS_WIDE_LAUNCHES = common.LaunchCounter("thomas_wide")
 
 #: Rows per sub-block at every level of the reduced solve.
 R = 32
-#: Base size: a level of at most N0 rows goes to the one-thread chain.
-N0 = 64
+#: Base size: a level of at most N0 rows goes to the one-thread chain. A
+#: level costs about as much as the chain of some 600-800 rows (its
+#: launches, with the host's work of enqueuing them), so below that the
+#: chain alone is faster (chip_smoke.py's n0 sweep).
+N0 = 512
 
 Tensor = torch.Tensor
 
@@ -53,7 +56,7 @@ def padded_rows(n: int, r: int = R, n0: int = N0) -> int:
 
 def level_sizes(n: int, r: int = R, n0: int = N0) -> List[int]:
     """Rows per system at each level, the caller's first, the base's last:
-    1e6 → 31250 → 977 → 31 at r = 32, n0 = 64."""
+    1e6 → 31250 → 977 → 31 at r = 32, n0 = 512."""
     sizes = [n]
     while sizes[-1] > n0:
         sizes.append(common.cdiv(sizes[-1], r))

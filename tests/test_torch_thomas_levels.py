@@ -9,7 +9,9 @@ plain stages (``partition_stage1``/``partition_stage3`` on (B, n) rows,
 ``thomas``/``thomas_wide`` as the base), on inputs made with numpy from a
 seed, and is held to ``thomas_pallas`` / ``thomas_pallas_wide`` at the
 tolerance ladder (fp64 1e-12, fp32 1e-5). The sizes are the edges of the
-level structure at the module's own R and N0.
+level structure at the module's own R, with a base of N0_SMALL rows (so
+that three levels stay small enough for interpret mode) and at the
+module's own N0.
 """
 
 import numpy as np
@@ -31,9 +33,12 @@ from repro_torch.kernels.common import assert_allclose_by_dtype  # noqa: E402
 from repro_torch.kernels.thomas.ops import N0, R, level_sizes, solve_levels  # noqa: E402
 
 DTYPES = [np.float32, np.float64]
+N0_SMALL = 64
 # No level, the base alone at its edges, one level at its edges, two
-# levels, three levels.
-SIZES = [1, 2, N0, N0 + 1, R * N0 - 1, R * N0 + 1, R * R * N0 + 1]
+# levels, three levels (at a base of N0_SMALL rows).
+SIZES = [1, 2, N0_SMALL, N0_SMALL + 1, R * N0_SMALL - 1, R * N0_SMALL + 1, R * R * N0_SMALL + 1]
+# The base at its edges and one level at its edges, at the module's N0.
+MODULE_SIZES = [N0, N0 + 1, R * N0 - 1, R * N0 + 1]
 BATCHES = [1, 3, 64]
 
 PLAIN = {
@@ -48,17 +53,19 @@ def _system(n, bsz, dtype, seed):
     return make_diag_dominant_system(n, seed=seed, batch=(bsz,), dtype=dtype)[:4]
 
 
-def _levels(ops, wide):
-    return solve_levels(*(torch.from_numpy(np.array(a)) for a in ops), wide=wide, **PLAIN[wide])
+def _levels(ops, wide, n0=N0):
+    return solve_levels(*(torch.from_numpy(np.array(a)) for a in ops), wide=wide, n0=n0, **PLAIN[wide])
 
 
 def test_level_sizes_end_at_the_base():
-    assert SIZES[-1] > R * N0
-    assert len(level_sizes(SIZES[-1])) == 4  # three partition levels and the base
-    for n in SIZES + [1_000_000, 640_000, 10_000, 1_000]:
-        sizes = level_sizes(n)
-        assert sizes[0] == n and sizes[-1] <= N0
-        assert all(a > N0 and b == -(-a // R) for a, b in zip(sizes, sizes[1:]))
+    assert SIZES[-1] > R * N0_SMALL
+    assert len(level_sizes(SIZES[-1], n0=N0_SMALL)) == 4  # three partition levels and the base
+    assert level_sizes(1_000_000) == [1_000_000, 31_250, 977, 31]
+    for n0 in (N0_SMALL, N0):
+        for n in SIZES + MODULE_SIZES + [1_000_000, 640_000, 10_000, 1_000]:
+            sizes = level_sizes(n, n0=n0)
+            assert sizes[0] == n and sizes[-1] <= n0
+            assert all(a > n0 and b == -(-a // R) for a, b in zip(sizes, sizes[1:]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -67,7 +74,7 @@ def test_level_sizes_end_at_the_base():
 def test_levels_match_thomas_pallas(n, bsz, dtype):
     ops = _system(n, bsz, dtype, seed=n + bsz)
     want = thomas_pallas(*(jnp.asarray(a) for a in ops), block_b=128)
-    got = _levels(ops, wide=False)
+    got = _levels(ops, wide=False, n0=N0_SMALL)
     assert tuple(got.shape) == (bsz, n) and got.dtype == torch.from_numpy(ops[1]).dtype
     assert_allclose_by_dtype(got, np.asarray(want), dtype)
 
@@ -78,8 +85,23 @@ def test_levels_match_thomas_pallas(n, bsz, dtype):
 def test_wide_levels_match_thomas_pallas_wide(n, bsz, dtype):
     ops = tuple(np.ascontiguousarray(a.T) for a in _system(n, bsz, dtype, seed=2 * n + bsz))
     want = thomas_pallas_wide(*(jnp.asarray(a) for a in ops), block_b=128)
-    got = _levels(ops, wide=True)
+    got = _levels(ops, wide=True, n0=N0_SMALL)
     assert tuple(got.shape) == (n, bsz) and got.dtype == torch.from_numpy(ops[1]).dtype
+    assert_allclose_by_dtype(got, np.asarray(want), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("n", MODULE_SIZES)
+@pytest.mark.parametrize("wide", [False, True])
+def test_levels_at_the_module_base_size(wide, n, bsz, dtype):
+    ops = _system(n, bsz, dtype, seed=3 * n + bsz)
+    if wide:
+        ops = tuple(np.ascontiguousarray(a.T) for a in ops)
+    ref = thomas_pallas_wide if wide else thomas_pallas
+    want = ref(*(jnp.asarray(a) for a in ops), block_b=128)
+    got = _levels(ops, wide)
+    assert len(level_sizes(n)) == 1 + (n > N0) + (n > R * N0)
     assert_allclose_by_dtype(got, np.asarray(want), dtype)
 
 
