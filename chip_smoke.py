@@ -13,8 +13,10 @@ Phases:
    (interleaved) Stage 1/Stage 3, ragged identity padding included, the
    reduced solve (``thomas``) on both routes, the tridiagonal matvec, and
    the SSD intra-chunk stage at mamba2-1.3b's widths; max error against the
-   tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events,
-   the plain version's time and the bound (bytes over 3.35 TB/s or
+   tolerance ladder (fp64 1e-12, fp32 1e-5), the kernel's device time (CUDA
+   events around launches queued back to back behind a sleeping kernel, so
+   the host's launch work is not in it; events around one call printed
+   beside), the plain version's time and the bound (bytes over 3.35 TB/s or
    operations over the peak rate, whichever is larger); for the matvec the
    CSR sparse product's time. Stage 1 is also held against its plain
    version at block sizes m = 2 ... 100. Every Thomas row prints its level
@@ -24,7 +26,18 @@ Phases:
    ignored couplings dl[0], du[n-1] at sizes r divides (both routes, both
    dtypes, B = 1, 3, 64). Two sweeps are printed: the sub-block size r at
    B = 1, n = 1e6 fp64, and the levels against the one-thread base alone
-   at n = 65 ... 2000 (the base size n0).
+   at n = 65 ... 2000 (the base size n0). Stage 3 is held against its
+   plain version at m = 2 ... 100 and past its shared-memory span, at the
+   reduced solve's level shapes (m = R), with spikes unaligned to 16 bytes
+   and a nonzero ``left``; it is also timed at the main path's chunk shape
+   (P = 31,250, operand sets rotated past the L2), beside an empty launch
+   and a ``copy_`` of the same bytes. The SSD stage is held against its
+   plain version (on the CPU) at chunk lengths 1 ... 1024 and ragged
+   widths, with its fp32-FMA and split-TF32 bounds and the card's measured
+   ``mma.sync`` TF32 rate.
+   ``--against DIR[,DIR]`` adds a comparison: the SSD and Stage 3 C entries
+   built from other sources (for example the parent commit's ``csrc``)
+   timed in turn against this tree's in the same call.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -68,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -83,6 +97,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # Peak rates outside the tensor cores, H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+# TF32 on the tensor cores, dense (the same data sheet): the SSD kernel's
+# unit, where its split-TF32 products take three TF32 products each.
+TF32_TC_FLOPS = 495e12
+# A sleeping kernel of this many cycles (~30 ms) holds the card while the
+# host enqueues a run of launches (queued_ms).
+SLEEP_CYCLES = 60_000_000
 M = 10
 ALL_PHASES = ("build", "kernels", "main", "breakdown", "lm")
 # The kernels each path launches; its run must raise every one of their counts.
@@ -169,6 +189,64 @@ def enqueue_ms(fn: Callable[[], Any], reps: int = 3) -> float:
     return statistics.median(times)
 
 
+_FLUSH: Dict[int, torch.Tensor] = {}
+
+
+def device_ms(fn: Callable[[], Any], reps: int = 10) -> float:
+    """Median device time (ms) of one call of ``fn``: CUDA events around
+    each call, the calls enqueued behind a sleeping kernel so that the
+    host's launch work is done before the card reaches them, and each call
+    after a read of a 64 MiB buffer, which evicts the 50 MB L2 (operands
+    arrive cold, as from a caller whose data came from elsewhere). Raises
+    when the host took longer to enqueue them than the sleep lasted."""
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        _FLUSH[dev] = torch.zeros(16 * 2**20, device=torch.device("cuda", dev))
+    flush = _FLUSH[dev]
+    flush.max()  # its workspace, allocated now and not inside the queue
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    slept = torch.cuda.Event()
+    slept.record()
+    for start, end in events:
+        flush.max()
+        start.record()
+        fn()
+        end.record()
+    assert not slept.query(), "the sleep ended before the launches were enqueued"
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def queued_ms(fns: List[Callable[[], Any]], reps: int = 5) -> float:
+    """Device time (ms) a call of ``fns``, from CUDA events around all of
+    them, enqueued behind a sleeping kernel: the host's work of launching
+    them is done before the card reaches them, so they run back to back and
+    the reading is the card's alone. Raises when the host took longer to
+    enqueue them than the sleep lasted."""
+    for fn in fns:
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        slept.record()
+        start.record()
+        for fn in fns:
+            fn()
+        end.record()
+        assert not slept.query(), "the sleep ended before the launches were enqueued"
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    return statistics.median(times)
+
+
 def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, top: int = 5) -> None:
     """``fn`` under ``torch.profiler``: the device's busy time a call (the
     sum of its kernels' and copies' device times; one stream, so they do
@@ -202,9 +280,12 @@ def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, 
         + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for t, c, k in entries[:top]))
 
 
-def bound(nbytes: float, ops: float, dtype: torch.dtype) -> Tuple[float, str]:
+def bound(nbytes: float, ops: float, peak: float) -> Tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of device memory traffic and
+    ``ops`` operations at ``peak`` operations a second, the rate of the unit
+    the kernel runs them on, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -272,10 +353,13 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
     def check(name: str, dtype: torch.dtype, kernel: Callable[[], Any], plain: Callable[[], Any],
               nbytes: float, ops: float, reps: int = 20, plain_reps: int = 5,
               plain_warmup: int = 2,
-              library: Optional[Callable[[], Any]] = None) -> Tuple[Any, float]:
+              library: Optional[Callable[[], Any]] = None,
+              peak: Optional[float] = None) -> Tuple[Any, float]:
         """Run, compare and time one kernel against its plain version (and
         one PyTorch call computing the same function, where there is one);
-        returns the kernel's output and its median ms."""
+        returns the kernel's output and its median ms. ``peak``: the rate
+        of the unit that runs the kernel's operations (default: the CUDA
+        cores' rate for ``dtype``)."""
         got = kernel()
         plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
         torch.cuda.synchronize()
@@ -284,19 +368,25 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             assert tuple(g.shape) == tuple(w.shape), (name, tuple(g.shape), tuple(w.shape))
             assert_allclose_by_dtype(g, w, dtype)
         err = max(max_err(g, w) for g, w in pairs)
-        ms = cuda_ms(kernel, reps=reps)
+        # The kernel's time is the card's (device_ms: cold L2, the host's
+        # launch work not in it); CUDA events around one call from an idle
+        # card, host gaps included, are printed beside.
+        ms = device_ms(kernel)
+        ms_events = cuda_ms(kernel, reps=reps)
         lib_ms = None
         if library is not None:
-            lib_ms, lib_out = timed_cuda(library, reps=reps)
+            lib_out = library()
+            lib_ms = device_ms(library)
             assert_allclose_by_dtype(lib_out, got, dtype)
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b_ms, b_by = bound(nbytes, ops, PEAK_FLOPS[dtype] if peak is None else peak)
         source, replaces = sources[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
-        log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} (events around one call {ms_events:.4f}) "
+            f"plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
             + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
         return got, ms
@@ -373,6 +463,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         check(f"partition_stage3/{tag}/P={p},m={M}", dtype,
               lambda: partition_stage3_cuda(c, s), lambda: partition_stage3(c, s),
               *stage3_cost(1, p, es))
+        copy_yardstick(dev, dtype, stage3_cost(1, p, es)[0], f"Stage 3 at P={p}")
+        rows.append(stage3_chunk_row(dev, np_dtype, dtype, stage3_cost))
         red = (c.red_dl, c.red_d, c.red_du, c.red_b)
         if dtype == torch.float64:
             # The main path's reduced system of the n = 1e7 fp64 solve,
@@ -453,6 +545,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         thomas_edges(dev, np_dtype, dtype)
         thomas_ignored_ends(dev, np_dtype, dtype)
         stage1_edges(dev, np_dtype, dtype)
+        stage3_edges(dev, np_dtype, dtype)
         if dtype == torch.float64:
             n0_sweep(dev)
 
@@ -571,6 +664,105 @@ def stage1_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
         f"max_abs_err={max(errs):.3e}")
 
 
+def stage3_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
+    """System-major Stage 3 against its plain version: block sizes m = 2 ...
+    100 (the two compiled sizes 10 and R = 32 among them) and one past the
+    largest span staged in shared memory (m = 2733, read straight from
+    device memory) at B = 3 systems; the reduced solve's level shapes at
+    m = R (B = 1, n = 1e6 and B = 64, n = 10,000); spikes at element
+    offsets that leave them unaligned to 16 bytes; a nonzero ``left``."""
+    from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
+    from repro_torch.kernels.common import assert_allclose_by_dtype, cdiv
+    from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_batched
+    from repro_torch.kernels.thomas.ops import R, level_sizes
+
+    rng = np.random.default_rng(950)
+
+    def rand(shape: Tuple[int, ...], offset: int) -> torch.Tensor:
+        size = int(np.prod(shape))
+        buf = torch.as_tensor(rng.standard_normal(size + offset), device=dev).to(dtype)
+        return buf[offset:].view(shape)  # contiguous, `offset` elements past an aligned start
+
+    cases = [(3, 1000, m) for m in (2, 3, M, R, 64, 65, 100)] + [(3, 10, 2733)]
+    cases += [(1, cdiv(lv, R), R) for lv in level_sizes(1_000_000)[:-1]]
+    cases += [(64, cdiv(lv, R), R) for lv in level_sizes(10_000)[:-1]]
+    errs = []
+    for bsz, pb, m in cases:
+        for offsets in ((0, 0, 0), (1, 2, 3)):
+            y, v, w = (rand((bsz, pb, m - 1), o) for o in offsets)
+            sv, left = rand((bsz, pb), 1), rand((bsz,), 0)
+            c = PartitionCoeffs(y, v, w, *(sv,) * 4)
+            got = partition_stage3_cuda_batched(c, sv, left)
+            want = partition_stage3(c, sv, left)
+            assert_allclose_by_dtype(got, want, dtype)
+            errs.append(max_err(got, want))
+    log(f"  partition_stage3 at the edges, {np_dtype.__name__}: (B, P, m) in {cases}, spikes at "
+        f"element offsets 0 and 1/2/3, nonzero left: max_abs_err={max(errs):.3e}")
+
+
+def copy_yardstick(dev: torch.device, dtype: torch.dtype, nbytes: float, label: str) -> None:
+    """The card's achievable streaming rate: a device-to-device ``copy_``
+    that reads and writes ``nbytes`` in all (a yardstick; the port never
+    calls it)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    src = torch.ones(int(nbytes / 2 / es), dtype=dtype, device=dev)
+    dst = torch.empty_like(src)
+    ms = device_ms(lambda: dst.copy_(src))
+    log(f"    copy_ yardstick, the bytes of {label} ({nbytes / 1e6:.1f} MB read + written): "
+        f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s against {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+
+
+def stage3_chunk_row(dev: torch.device, np_dtype: Any, dtype: torch.dtype,
+                     cost: Callable[[int, int, int], Tuple[float, float]]) -> Dict[str, Any]:
+    """Stage 3 at the main path's chunk shape: one of the 32 chunks of the
+    n = 1e7 solve, P = 31,250, with the neighbouring chunk's ``left``. One
+    chunk's operands fit the 50 MB L2, so the launches rotate through
+    enough operand sets to exceed 64 MB, back to back behind a sleeping
+    kernel (``queued_ms``); beside it an empty kernel's launch (the floor)
+    and a ``copy_`` of the same bytes, both timed the same way."""
+    from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import assert_allclose_by_dtype, current_stream
+    from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda
+
+    pb = 10_000_000 // M // 32
+    tag = "f64" if dtype == torch.float64 else "f32"
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes, ops = cost(1, pb, es)
+    nsets = max(8, int(np.ceil(64e6 / nbytes)))
+    rng = np.random.default_rng(960)
+    sets = []
+    for _ in range(nsets):
+        y, v, w = (torch.as_tensor(rng.standard_normal((pb, M - 1)), device=dev).to(dtype)
+                   for _ in range(3))
+        sv = torch.as_tensor(rng.standard_normal(pb), device=dev).to(dtype)
+        left = torch.as_tensor(rng.standard_normal(()), device=dev).to(dtype)
+        sets.append((PartitionCoeffs(y, v, w, *(sv,) * 4), sv, left))
+    got = partition_stage3_cuda(*sets[0])
+    plain_ms, want = timed_cuda(lambda: partition_stage3(*sets[0]), reps=5)
+    assert_allclose_by_dtype(got, want, dtype)
+    ms = queued_ms([lambda st=st: partition_stage3_cuda(*st) for st in sets] * 3)
+    empty = build.entry("partition_stage3", "repro_empty_launch", (ctypes.c_void_p,))
+    stream = current_stream(dev)
+    floor = queued_ms([lambda: empty(stream)] * 64)
+    alone = cuda_ms(lambda: empty(stream), reps=20)
+    half = int(nbytes / 2 / es)
+    bufs = [(torch.ones(half, dtype=dtype, device=dev), torch.empty(half, dtype=dtype, device=dev))
+            for _ in range(nsets)]
+    copy_ms = queued_ms([lambda s_=s_, d_=d_: d_.copy_(s_) for s_, d_ in bufs] * 3)
+    b_ms, b_by = bound(nbytes, ops, PEAK_FLOPS[dtype])
+    name = f"partition_stage3/{tag}/P={pb},m={M},chunk"
+    log(f"  {name}: {nsets} operand sets ({nsets * nbytes / 1e6:.1f} MB) in turn, back to back: "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+        f"{b_ms / ms:.3f}; empty launch {floor:.4f} ms back to back, {alone:.4f} ms alone "
+        f"(events around one launch); copy_ of the same bytes {copy_ms:.4f} ms "
+        f"({nbytes / copy_ms / 1e6:.1f} GB/s)")
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/partition_stage3.cu",
+            "replaces": "src/repro/kernels/partition_stage3/stage3.py:17", "launches": None,
+            "max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -> None:
     """The tridiagonal matvec and the SSD intra-chunk stage against their
     plain versions, at the shapes their paths give them."""
@@ -599,21 +791,25 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
     # SSD Stage 1 at mamba2-1.3b's widths (H = 64 heads of P = 64, N = 128):
     # the 4 x 1024-token prefill's G = 16 cells of Q = 256, and the odd chunk
     # of a batch padded to 197 tokens. Inputs as in tests/test_kernel_ssd.py.
+    # The kernel runs its products on the tensor cores in split TF32, three
+    # TF32 products for each fp32 one: its bound is 3 x the operations at
+    # the TF32 rate; the fp32-FMA bound on the CUDA cores is printed beside.
     nh, p, n = 64, 64, 128
+    mma_peak = mma_tf32_peak(dev)
     for g, q in ((16, 256), (4, 197)):
-        rng = np.random.default_rng(g + q)
-        u = torch.as_tensor(rng.standard_normal((g, q, nh, p)) * 0.5, device=dev).float()
-        dac = torch.as_tensor(-0.1 * np.log1p(np.exp(rng.standard_normal((g, q, nh)))),
-                              device=dev).float()
-        b, c = (torch.as_tensor(rng.standard_normal((g, q, n)) * 0.5, device=dev).float()
-                for _ in range(2))
-        causal = q * (q + 1) // 2  # the (q, k <= q) pairs
-        macs = g * (causal * n + nh * causal * p + nh * q * p * n)
-        nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
-        check(f"ssd_stage1/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
-              lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
-              nbytes, 2 * macs)
+        u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
+        nbytes, macs = ssd_cost(g, q, nh, p, n)
+        _, ms = check(f"ssd_stage1/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
+                      lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
+                      nbytes, 3 * 2 * macs, peak=TF32_TC_FLOPS)
+        fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
+        sync_ms, _ = bound(nbytes, 6 * macs, mma_peak)
+        log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, 67 TFLOP/s, "
+            f"share {fma_ms / ms:.3f}); split-TF32 bound {bound(nbytes, 6 * macs, TF32_TC_FLOPS)[0]:.4f} "
+            f"ms (tensor cores, 3 x the operations at 495 TFLOP/s); at the measured mma.sync peak "
+            f"{sync_ms:.4f} ms (share {sync_ms / ms:.3f})")
         del u, dac, b, c
+    ssd_edges(dev)
 
     # The whole chunked scan through the kernel against the plain scan, with
     # and without an incoming state, at 1e-4 (tests/test_kernel_ssd.py).
@@ -633,6 +829,211 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
             errs.append(max_err(gt, wt))
         log(f"  ssd_scan_kernel vs ssd_scan, B={bsz}, S={s}, chunk=256, "
             f"h0={'None' if h0 is None else '0.1'}: max_abs_err y={errs[0]:.3e} state={errs[1]:.3e}")
+
+
+def ssd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
+               seed: int) -> Tuple[torch.Tensor, ...]:
+    """SSD Stage 1 inputs (u, dac, b, c) as in tests/test_kernel_ssd.py."""
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.standard_normal((g, q, nh, p)) * 0.5, device=dev).float()
+    dac = torch.as_tensor(-0.1 * np.log1p(np.exp(rng.standard_normal((g, q, nh)))),
+                          device=dev).float()
+    b, c = (torch.as_tensor(rng.standard_normal((g, q, n)) * 0.5, device=dev).float()
+            for _ in range(2))
+    return u, dac, b, c
+
+
+def ssd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
+    """Bytes (each input read once, each output written once) and
+    multiply-adds of SSD Stage 1 (the causal half of the scores and of y)."""
+    causal = q * (q + 1) // 2  # the (q, k <= q) pairs
+    macs = g * (causal * n + nh * causal * p + nh * q * p * n)
+    nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
+    return nbytes, macs
+
+
+def mma_tf32_peak(dev: torch.device) -> float:
+    """The rate (FLOP/s) that mma.sync.m16n8k8 with TF32 inputs reaches on
+    this card (csrc/ssd_stage1.cu's yardstick entry: four blocks of 128
+    threads a SM, each thread in 32 independent MMAs a round), the unit the
+    SSD kernel's products run on. A yardstick: the data sheet's 495 TFLOP/s
+    is wgmma's."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import current_stream
+
+    fn = build.entry("ssd_stage1", "ssd_mma_tf32_peak",
+                     (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    blocks, iters = 4 * torch.cuda.get_device_properties(dev).multi_processor_count, 2000
+    out = torch.empty(blocks * 128, device=dev)
+    stream = current_stream(dev)
+    ms = queued_ms([lambda: fn(out.data_ptr(), blocks, iters, stream)] * 3)
+    flops = blocks * 4 * iters * 32 * 2 * 16 * 8 * 8
+    log(f"  mma.sync m16n8k8 TF32 peak: {blocks} blocks of 128 threads, {ms:.4f} ms, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s (data sheet, TF32 dense: 495)")
+    return flops / ms * 1e3
+
+
+def ssd_edges(dev: torch.device) -> None:
+    """SSD Stage 1 against its plain version at the fp32 ladder over the
+    chunk lengths it takes (1 ... MAX_CHUNK = 1024, the odd 197 among them)
+    at mamba2-1.3b's widths, and at widths that leave ragged tiles of P
+    and N and unaligned rows (P = 20 and 130, N = 36 and 200, N = 6). The
+    plain version runs on the CPU here: on the card, torch's fp32 cumsum of
+    the decays errs by about 1e-4 at |cum| ~ 85 (Q = 1024), which alone
+    takes the plain version off the ladder against an fp64 reference; the
+    CPU's sequential cumsum does not."""
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_cuda
+    from repro_torch.models.layers.ssm import ssd_stage1
+
+    shapes = [(2, q, 64, 64, 128) for q in (1, 7, 64, 197, 256)] + [(1, 1024, 64, 64, 128)]
+    shapes += [(3, 97, 3, 20, 36), (2, 130, 2, 130, 200), (2, 33, 4, 6, 6)]
+    errs = []
+    for i, (g, q, nh, p, n) in enumerate(shapes):
+        ins = ssd_inputs(dev, g, q, nh, p, n, seed=900 + i)
+        got, want = ssd_stage1_cuda(*ins), ssd_stage1(*(t.cpu() for t in ins))
+        for gt, wt in zip(got, want):
+            assert_allclose_by_dtype(gt, wt, torch.float32)
+        errs.append(max(max_err(gt, wt) for gt, wt in zip(got, want)))
+    log("  ssd_stage1 at the edges against the plain version on the CPU, (G, Q, H, P, N) -> "
+        "max_abs_err: "
+        + "; ".join(f"{sh} {e:.3e}" for sh, e in zip(shapes, errs)))
+
+    # At Q = 1024 both the kernel and the plain version on the card against
+    # an fp64 version of the same formula, on the card.
+    ins = ssd_inputs(dev, 1, 1024, 64, 64, 128, seed=900 + shapes.index((1, 1024, 64, 64, 128)))
+    u, dac, b, c = (t.double() for t in ins)
+    cum = torch.cumsum(dac, 1).movedim(-1, -2)  # [G, H, Q]
+    causal = torch.ones(1024, 1024, dtype=torch.bool, device=dev).tril()
+    diff = cum[..., :, None] - cum[..., None, :]
+    decay = torch.exp(torch.where(causal, diff, torch.full((), -1e300, dtype=torch.float64, device=dev)))
+    y64 = torch.einsum("ghqk,gkhp->gqhp", torch.einsum("gqn,gkn->gqk", c, b)[:, None] * decay, u)
+    for label, y in (("kernel", ssd_stage1_cuda(*ins)[0]), ("plain on the card", ssd_stage1(*ins)[0])):
+        e = (y.double() - y64).abs()
+        off = int((e > 1e-4 + 1e-5 * y64.abs()).sum())
+        log(f"    Q=1024, y against fp64: {label} max_abs_err {e.max().item():.3e}, "
+            f"{off} elements off the fp32 ladder")
+
+
+# ------------------------------------------------------------------ against --
+AGAINST_KERNELS = ("ssd_stage1", "partition_stage3")
+
+
+def build_other(dirs: List[str]) -> List[Dict[str, ctypes.CDLL]]:
+    """Build ``AGAINST_KERNELS`` from each of ``dirs`` (another tree's
+    ``csrc``, with the same C entries; a kernel whose source a directory
+    lacks is skipped) into ``build/against/<i>/``, one nvcc each, all at
+    once, with this tree's flags."""
+    from repro_torch.kernels import build
+
+    jobs = []
+    for i, d in enumerate(dirs):
+        out = build.BUILD_DIR.parent / "against" / str(i)
+        out.mkdir(parents=True, exist_ok=True)
+        for name in AGAINST_KERNELS:
+            src = Path(d) / f"{name}.cu"
+            if src.exists():
+                cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(src)]
+                jobs.append((i, name, out / f"{name}.so",
+                             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True)))
+    libs: List[Dict[str, ctypes.CDLL]] = [{} for _ in dirs]
+    for i, name, path, proc in jobs:
+        _, err = proc.communicate()
+        assert proc.returncode == 0, f"nvcc failed on {dirs[i]}/{name}.cu:\n{err}"
+        libs[i][name] = ctypes.CDLL(str(path))
+    return libs
+
+
+def against_phase(dev: torch.device, dirs: List[str]) -> None:
+    """This tree's SSD Stage 1 and system-major Stage 3 against the same C
+    entries built from other sources (``--against``: for example the parent
+    commit's ``csrc``, unpacked with ``git archive`` into a directory that
+    .gitignore lists), at the main path's shapes, in one call. Both sides
+    are the bare C entry on the same preallocated tensors (no wrapper), timed
+    on the device (``device_ms``) and with CUDA events around each call
+    from an idle card, in turn (other, this, this, other).
+    Stage 3 must agree bit for bit; both SSD builds are held against the
+    plain version at the fp32 ladder."""
+    from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
+    from repro_torch.kernels import build, common
+    from repro_torch.kernels.common import assert_allclose_by_dtype, current_stream
+    from repro_torch.kernels.partition_stage3 import ops as s3ops
+    from repro_torch.kernels.ssd_stage1 import ops as ssdops
+    from repro_torch.kernels.thomas.ops import R
+    from repro_torch.models.layers.ssm import ssd_stage1
+
+    t0 = time.perf_counter()
+    libs = build_other(dirs)
+    log(f"  built {[sorted(lib) for lib in libs]} from {dirs} in {time.perf_counter() - t0:.2f} s")
+    stream = current_stream(dev)
+
+    def entry(lib: Optional[ctypes.CDLL], name: str, symbol: str, argtypes: Tuple[type, ...]) -> Any:
+        if lib is None:
+            return build.entry(name, symbol, argtypes)
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
+    def caller(fn: Any, args: List[Any]) -> Callable[[], None]:
+        def run() -> None:
+            code = fn(*args, stream)
+            assert code == 0, code
+        return run
+
+    def turn(this: Callable[[], None], other: Callable[[], None]) -> str:
+        d = [device_ms(fn) for fn in (other, this, this, other)]
+        d_this, d_other = (d[1] + d[2]) / 2, (d[0] + d[3]) / 2
+        t = alternating_ms([other, this, this, other], reps=20)
+        e_this, e_other = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        return (f"device: this {d_this:.4f} ms, other {d_other:.4f} ms (this/other "
+                f"{d_this / d_other:.3f}); events around one call, in turn: this {e_this:.4f} ms, "
+                f"other {e_other:.4f} ms")
+
+    for d, lib in zip(dirs, libs):
+        if "partition_stage3" in lib:
+            rng = np.random.default_rng(970)
+            for bsz, pb, m, dtype in ((1, 1_000_000, M, torch.float64), (1, 1_000_000, M, torch.float32),
+                                      (64, 10_000, M, torch.float64), (64, 10_000, M, torch.float32),
+                                      (1, 10_000_000 // M // 32, M, torch.float64),
+                                      (1, 31_250, R, torch.float64)):
+                symbol = f"partition_stage3_{common.KERNEL_DTYPES[dtype]}"
+                y, v, w = (torch.as_tensor(rng.standard_normal((bsz, pb, m - 1)), device=dev).to(dtype)
+                           for _ in range(3))
+                sv = torch.as_tensor(rng.standard_normal((bsz, pb)), device=dev).to(dtype)
+                left = torch.as_tensor(rng.standard_normal(bsz), device=dev).to(dtype)
+                outs = [torch.empty(bsz, pb * m, dtype=dtype, device=dev) for _ in range(2)]
+                this, other = (caller(entry(src, "partition_stage3", symbol, s3ops._ARGS),
+                                      [t.data_ptr() for t in (y, v, w, sv, left, x)] + [bsz, pb, m])
+                               for src, x in ((None, outs[0]), (lib["partition_stage3"], outs[1])))
+                this()
+                other()
+                assert torch.equal(*outs), f"Stage 3 differs from {d} at {(bsz, pb, m, dtype)}"
+                assert_allclose_by_dtype(outs[0], partition_stage3(
+                    PartitionCoeffs(y, v, w, *(sv,) * 4), sv, left), dtype)
+                log(f"  partition_stage3 B={bsz},P={pb},m={m} {symbol[-3:]} against {d}, "
+                    f"bit-identical; {turn(this, other)}")
+                del y, v, w, sv, left, outs
+        if "ssd_stage1" in lib:
+            nh, p, n = 64, 64, 128
+            for g, q in ((16, 256), (4, 197)):
+                u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
+                outs = [(torch.empty_like(u), torch.empty(g, nh, p, n, device=dev),
+                         torch.empty(g, q, common.round_up(q, 4), device=dev)) for _ in range(2)]
+                this, other = (caller(entry(src, "ssd_stage1", "ssd_stage1_f32", ssdops._ARGS),
+                                      [t.data_ptr() for t in (u, dac, b, c, *o)] + [g, q, nh, p, n])
+                               for src, o in ((None, outs[0]), (lib["ssd_stage1"], outs[1])))
+                this()
+                other()
+                want = ssd_stage1(u, dac, b, c)
+                errs = []
+                for o in outs:
+                    for gt, wt in zip(o[:2], want):
+                        assert_allclose_by_dtype(gt, wt, torch.float32)
+                    errs.append(max(max_err(gt, wt) for gt, wt in zip(o[:2], want)))
+                log(f"  ssd_stage1 G={g},Q={q} against {d}: max_abs_err this {errs[0]:.3e}, "
+                    f"other {errs[1]:.3e}; {turn(this, other)}")
+                del u, dac, b, c, outs
 
 
 # --------------------------------------------------------------------- main --
@@ -1081,8 +1482,9 @@ def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
 
 def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
     """Where one full-width bf16 prefill of 4 x 1024 tokens and one decode
-    step at batch 4 go: each part timed on its own with CUDA events (48
-    times one layer's part), the rest by difference."""
+    step at batch 4 go: the whole step with CUDA events, each part on its
+    own as device time (``device_ms``, 48 times one layer's part), the rest
+    by difference."""
     from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel, ssd_stage1_cuda
     from repro_torch.models.layers.embedding import logits_out
     from repro_torch.models.registry import build_model
@@ -1107,21 +1509,24 @@ def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
                     params, caches, {"token": tokens, "pos": pos}, pctx), reps=10, warmup=2)
             x = torch.randn(bsz, s, d, generator=gen, device=dev).to(bf16)
             y = torch.randn(bsz, s, di, generator=gen, device=dev).to(bf16)
-            proj = cuda_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
-                                    x @ layer.w_dt, y @ layer.out_proj), reps=10) * layers
-            logits = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
+            proj = device_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
+                                      x @ layer.w_dt, y @ layer.out_proj)) * layers
+            logits = device_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
             parts = {"projections": proj, "logits": logits}
             if s > 1:
                 xh = torch.randn(bsz, s, nh, p, generator=gen, device=dev)
                 dt = torch.nn.functional.softplus(torch.randn(bsz, s, nh, generator=gen, device=dev))
                 a = -torch.exp(layer.a_log)
                 b_in, c_in = (torch.randn(bsz, s, n, generator=gen, device=dev) for _ in range(2))
-                scan = cuda_ms(lambda: ssd_scan_kernel(xh, dt, a, b_in, c_in, chunk=cfg.ssm_chunk),
-                               reps=10) * layers
+                scan = device_ms(lambda: ssd_scan_kernel(xh, dt, a, b_in, c_in,
+                                                         chunk=cfg.ssm_chunk)) * layers
                 g, q = bsz * s // cfg.ssm_chunk, cfg.ssm_chunk
                 u, dac, bc, cc = (xh.reshape(g, q, nh, p), (dt * a).reshape(g, q, nh),
                                   b_in.reshape(g, q, n), c_in.reshape(g, q, n))
-                kernel = cuda_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc), reps=10) * layers
+                kernel = device_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc)) * layers
+                log(f"    ssd_stage1 with CUDA events around one call from an idle card: "
+                    f"{cuda_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc), reps=10) * layers:.3f} ms "
+                    f"for {layers} layers")
                 parts.update({"ssd_stage1 kernel": kernel,
                               "ssd stages 2-3 and glue": scan - kernel})
             parts["rest (conv, norms, gating, embedding, launches)"] = total - sum(parts.values())
@@ -1134,6 +1539,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help=f"comma list of phases, from {ALL_PHASES}")
+    parser.add_argument("--against", default="",
+                        help="comma list of other csrc directories whose ssd_stage1.cu and "
+                             "partition_stage3.cu are timed in turn against this tree's "
+                             "(run after the kernels phase)")
     args = parser.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
@@ -1165,6 +1574,9 @@ def main() -> int:
     if "kernels" in phases:
         log("kernels: each kernel against its plain version on the card")
         rows = kernel_phase(dev)
+    if args.against:
+        log(f"against: this tree's ssd_stage1 and partition_stage3 against {args.against}")
+        against_phase(dev, [d for d in args.against.split(",") if d])
     # Launch counts come from the path that runs each kernel (the main phase
     # for the solver's, the lm phase for the SSD kernel's); a kernel whose
     # path did not run has none.

@@ -2,8 +2,11 @@
 
 Replaces ``repro.kernels.partition_stage3`` (the ``_stage3_kernel`` Pallas
 body and the ``s_left`` shift of ``_stage3_impl`` / ``_stage3_impl_batched``).
-The kernel is ``csrc/partition_stage3.cu``: one thread per output element.
-Its plain version is the reference stage,
+The kernel is ``csrc/partition_stage3.cu``: one CUDA block per span of
+partition blocks, whose spikes are staged into shared memory with 16-byte
+copies and whose outputs go out as 16-byte stores, in the same order of
+operations as one thread per element (so results keep their bits). Its
+plain version is the reference stage,
 :func:`repro_torch.core.tridiag.partition.partition_stage3`.
 
 :func:`partition_stage3_cuda_wide` replaces ``_stage3_kernel_wide`` and the

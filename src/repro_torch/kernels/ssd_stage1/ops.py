@@ -3,10 +3,16 @@ chunked scan around it.
 
 Replaces ``repro.kernels.ssd_stage1`` (the ``_ssd1_kernel`` Pallas body,
 reached through ``ssd1_tiled`` from ``ssd_scan_pallas``). The kernel is
-``csrc/ssd_stage1.cu``: a score kernel (C·Bᵀ per cell, tiles on or below the
-diagonal) and an intra-chunk kernel (one block per cell, head and 64
-columns of the head dim) that applies the decay on the fly. Its plain
-version is :func:`repro_torch.models.layers.ssm.ssd_stage1`.
+``csrc/ssd_stage1.cu``, on the tensor cores in split TF32: each fp32
+operand is split into a TF32 high part and a TF32 remainder, and each
+product is taken as three TF32 products (lo·hi + hi·lo + hi·hi) with fp32
+accumulation. That holds the fp32 ladder; one TF32 product alone would not
+(``tests/test_torch_ssd_split.py``). Its C entry runs three kernels: the
+scores C·Bᵀ (tiles on or below the diagonal) into a scratch with 16-byte
+rows, the chunk states (two heads a block), and the intra-chunk outputs
+(one block per cell, head and 64 columns of the head dim), which apply the
+decay in fp32 before splitting. Its plain version is
+:func:`repro_torch.models.layers.ssm.ssd_stage1`.
 
 :func:`ssd_scan_kernel` is the counterpart of ``ssd_scan_pallas``: the same
 signature and semantics as the plain
@@ -55,7 +61,8 @@ def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tenso
         raise ValueError(f"ssd_stage1: chunk length {q} outside 1..{MAX_CHUNK}")
     y = torch.empty_like(u)
     s = torch.empty(g, nh, p, n, dtype=torch.float32, device=u.device)
-    scores = torch.empty(g, q, q, dtype=torch.float32, device=u.device)  # scratch: C·Bᵀ
+    # Scratch for C·Bᵀ, rows padded to a multiple of 4 floats (16 bytes).
+    scores = torch.empty(g, q, common.round_up(q, 4), dtype=torch.float32, device=u.device)
     common.call(
         "ssd_stage1", "ssd_stage1", "ssd_stage1_f32", _ARGS, u.device,
         [t.data_ptr() for t in (u, dac, b, c, y, s, scores)] + [g, q, nh, p, n],
