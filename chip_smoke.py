@@ -13,12 +13,13 @@ Phases:
    (interleaved) Stage 1/Stage 3, ragged identity padding included, the
    reduced solve (``thomas``) on both routes, the tridiagonal matvec, and
    the SSD intra-chunk stage at mamba2-1.3b's widths; max error against the
-   tolerance ladder (fp64 1e-12, fp32 1e-5), the kernel's device time (CUDA
-   events around launches queued back to back behind a sleeping kernel, so
-   the host's launch work is not in it; events around one call printed
-   beside), the plain version's time and the bound (bytes over 3.35 TB/s or
-   operations over the peak rate, whichever is larger); for the matvec the
-   CSR sparse product's time. Stage 1 is also held against its plain
+   tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events
+   around one call (``ms``), the kernel's device time beside it
+   (``device_ms``: calls queued behind a sleeping kernel, so the host's
+   launch work is not in it, with the L2 evicted before each), the plain
+   version's time and the bound (bytes over 3.35 TB/s or operations over
+   the peak rate of the unit that runs them, whichever is larger); for the
+   matvec the CSR sparse product's time. Stage 1 is also held against its plain
    version at block sizes m = 2 ... 100. Every Thomas row prints its level
    sizes and its time at a base of n0 = 64 rows, and must give the same
    bits twice; the reduced solve is also held against the fp64 host oracle
@@ -29,15 +30,13 @@ Phases:
    at n = 65 ... 2000 (the base size n0). Stage 3 is held against its
    plain version at m = 2 ... 100 and past its shared-memory span, at the
    reduced solve's level shapes (m = R), with spikes unaligned to 16 bytes
-   and a nonzero ``left``; it is also timed at the main path's chunk shape
-   (P = 31,250, operand sets rotated past the L2), beside an empty launch
-   and a ``copy_`` of the same bytes. The SSD stage is held against its
-   plain version (on the CPU) at chunk lengths 1 ... 1024 and ragged
-   widths, with its fp32-FMA and split-TF32 bounds and the card's measured
-   ``mma.sync`` TF32 rate.
-   ``--against DIR[,DIR]`` adds a comparison: the SSD and Stage 3 C entries
-   built from other sources (for example the parent commit's ``csrc``)
-   timed in turn against this tree's in the same call.
+   and a nonzero ``left``; it is also timed at P = 31,250 blocks, the main
+   path's chunk shape (m = 10) and the reduced solve's first level (m = 32),
+   with operand sets rotated past the L2 and with one set warm in it,
+   beside a one-element kernel's launch (the floor) and a ``copy_`` of the
+   same bytes. The SSD stage is held against its plain version (on the CPU)
+   at chunk lengths 1 ... 1024 and ragged widths, with its fp32-FMA and
+   split-TF32 bounds.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -81,8 +80,8 @@ from __future__ import annotations
 
 import argparse
 import copy
-import ctypes
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -100,9 +99,13 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 # TF32 on the tensor cores, dense (the same data sheet): the SSD kernel's
 # unit, where its split-TF32 products take three TF32 products each.
 TF32_TC_FLOPS = 495e12
-# A sleeping kernel of this many cycles (~30 ms) holds the card while the
-# host enqueues a run of launches (queued_ms).
+# A sleeping kernel of at least this many cycles (~30 ms) holds the card
+# while the host enqueues a run of launches (device_ms, queued_ms); it is
+# doubled, at most SLEEP_DOUBLINGS times, when the host is slower.
 SLEEP_CYCLES = 60_000_000
+SLEEP_DOUBLINGS = 4
+# Traces taken of one call before an empty one (no device entries) fails.
+PROFILE_ATTEMPTS = 3
 M = 10
 ALL_PHASES = ("build", "kernels", "main", "breakdown", "lm")
 # The kernels each path launches; its run must raise every one of their counts.
@@ -189,60 +192,77 @@ def enqueue_ms(fn: Callable[[], Any], reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def behind_sleep(enqueue: Callable[[], Any]) -> Any:
+    """Run ``enqueue`` (launches with their timing events) while a sleeping
+    kernel holds the card, so that the host's launch work is done before the
+    card reaches the launches; return its result once the card is done.
+    When the sleep ended before ``enqueue`` returned, the card may have
+    waited on the host: the run is thrown away and made again behind twice
+    the sleep, at most ``SLEEP_DOUBLINGS`` times, then this raises."""
+    cycles = SLEEP_CYCLES
+    for _ in range(SLEEP_DOUBLINGS + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        out = enqueue()
+        in_time = not slept.query()
+        torch.cuda.synchronize()
+        if in_time:
+            return out
+        log(f"    (the host outlasted a sleep of {cycles} cycles; timing again behind twice that)")
+        cycles *= 2
+    raise AssertionError(f"the host outlasted a sleep of {cycles // 2} cycles")
+
+
 _FLUSH: Dict[int, torch.Tensor] = {}
 
 
 def device_ms(fn: Callable[[], Any], reps: int = 10) -> float:
     """Median device time (ms) of one call of ``fn``: CUDA events around
-    each call, the calls enqueued behind a sleeping kernel so that the
-    host's launch work is done before the card reaches them, and each call
+    each call, the calls enqueued behind a sleeping kernel (``behind_sleep``)
+    so that the host's launch work is not in the reading, and each call
     after a read of a 64 MiB buffer, which evicts the 50 MB L2 (operands
-    arrive cold, as from a caller whose data came from elsewhere). Raises
-    when the host took longer to enqueue them than the sleep lasted."""
+    arrive cold, as from a caller whose data came from elsewhere)."""
     dev = torch.cuda.current_device()
     if dev not in _FLUSH:
         _FLUSH[dev] = torch.zeros(16 * 2**20, device=torch.device("cuda", dev))
     flush = _FLUSH[dev]
     flush.max()  # its workspace, allocated now and not inside the queue
     fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    torch.cuda._sleep(SLEEP_CYCLES)
-    slept = torch.cuda.Event()
-    slept.record()
-    for start, end in events:
-        flush.max()
-        start.record()
-        fn()
-        end.record()
-    assert not slept.query(), "the sleep ended before the launches were enqueued"
-    torch.cuda.synchronize()
-    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+    def enqueue() -> List[Tuple[torch.cuda.Event, torch.cuda.Event]]:
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        for start, end in events:
+            flush.max()
+            start.record()
+            fn()
+            end.record()
+        return events
+
+    return statistics.median(start.elapsed_time(end) for start, end in behind_sleep(enqueue))
 
 
 def queued_ms(fns: List[Callable[[], Any]], reps: int = 5) -> float:
     """Device time (ms) a call of ``fns``, from CUDA events around all of
-    them, enqueued behind a sleeping kernel: the host's work of launching
-    them is done before the card reaches them, so they run back to back and
-    the reading is the card's alone. Raises when the host took longer to
-    enqueue them than the sleep lasted."""
+    them, enqueued behind a sleeping kernel (``behind_sleep``): they run
+    back to back and the reading is the card's alone."""
     for fn in fns:
         fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
+
+    def enqueue() -> Tuple[torch.cuda.Event, torch.cuda.Event]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        slept = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        slept.record()
         start.record()
         for fn in fns:
             fn()
         end.record()
-        assert not slept.query(), "the sleep ended before the launches were enqueued"
-        end.synchronize()
+        return start, end
+
+    times = []
+    for _ in range(reps):
+        start, end = behind_sleep(enqueue)
         times.append(start.elapsed_time(end) / len(fns))
     return statistics.median(times)
 
@@ -253,26 +273,33 @@ def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, 
     not overlap), its idle share against ``ms`` (the call's CUDA-event time,
     taken without the profiler), and the largest device entries with their
     count a call. One call warms the profiler up before the ``reps`` it
-    records, each of which ends on a synchronisation."""
+    records, each of which ends on a synchronisation. A trace with no device
+    entries at all (the device tracer did not attach) is taken again, at
+    most ``PROFILE_ATTEMPTS`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
-        for _ in range(1 + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    entries = []
-    for e in prof.key_averages():
-        # Host-side ops also carry their kernels' time, and the step marks
-        # span the calls: only the device's own entries count.
-        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
-        entries.append((us / reps / 1e3, e.count // reps, e.key))
-    assert entries, f"{label}: the profiler recorded no device activity"
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+            for _ in range(1 + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        entries = []
+        for e in prof.key_averages():
+            # Host-side ops also carry their kernels' time, and the step
+            # marks span the calls: only the device's own entries count.
+            if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            entries.append((us / reps / 1e3, e.count // reps, e.key))
+        if entries:
+            break
+        log(f"    profiler, {label}: no device activity recorded in attempt {attempt} of "
+            f"{PROFILE_ATTEMPTS}")
+    assert entries, f"{label}: the profiler recorded no device activity in {PROFILE_ATTEMPTS} attempts"
     entries.sort(reverse=True)
     busy = sum(t for t, _, _ in entries)
     log(f"    profiler, {label}: device busy {busy:.4f} ms a call against {ms:.4f} ms "
@@ -357,9 +384,12 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
               peak: Optional[float] = None) -> Tuple[Any, float]:
         """Run, compare and time one kernel against its plain version (and
         one PyTorch call computing the same function, where there is one);
-        returns the kernel's output and its median ms. ``peak``: the rate
-        of the unit that runs the kernel's operations (default: the CUDA
-        cores' rate for ``dtype``)."""
+        returns the kernel's output and its median ms. ``ms`` (and
+        ``library_ms``) is CUDA events around one call from an idle card,
+        the wrapper's host work included; ``device_ms`` beside it is the
+        card's time alone, with a cold L2. ``peak``: the rate of the unit
+        that runs the kernel's operations (default: the CUDA cores' rate for
+        ``dtype``)."""
         got = kernel()
         plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
         torch.cuda.synchronize()
@@ -368,27 +398,24 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             assert tuple(g.shape) == tuple(w.shape), (name, tuple(g.shape), tuple(w.shape))
             assert_allclose_by_dtype(g, w, dtype)
         err = max(max_err(g, w) for g, w in pairs)
-        # The kernel's time is the card's (device_ms: cold L2, the host's
-        # launch work not in it); CUDA events around one call from an idle
-        # card, host gaps included, are printed beside.
-        ms = device_ms(kernel)
-        ms_events = cuda_ms(kernel, reps=reps)
-        lib_ms = None
+        ms = cuda_ms(kernel, reps=reps)
+        dev_ms = device_ms(kernel)
+        lib_ms = lib_dev_ms = None
         if library is not None:
-            lib_out = library()
-            lib_ms = device_ms(library)
+            lib_ms, lib_out = timed_cuda(library, reps=reps)
+            lib_dev_ms = device_ms(library)
             assert_allclose_by_dtype(lib_out, got, dtype)
         b_ms, b_by = bound(nbytes, ops, PEAK_FLOPS[dtype] if peak is None else peak)
         source, replaces = sources[name.split("/")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
         })
-        log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} (events around one call {ms_events:.4f}) "
-            f"plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
-            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
+        log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
+            f"device_ms={dev_ms:.4f} (share {b_ms / dev_ms:.3f})"
+            + (f" library_ms={lib_ms:.4f} (device {lib_dev_ms:.4f})" if lib_ms is not None else ""))
         return got, ms
 
     def stage1_cost(bsz: int, p: int, es: int) -> Tuple[float, float]:
@@ -464,7 +491,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
               lambda: partition_stage3_cuda(c, s), lambda: partition_stage3(c, s),
               *stage3_cost(1, p, es))
         copy_yardstick(dev, dtype, stage3_cost(1, p, es)[0], f"Stage 3 at P={p}")
-        rows.append(stage3_chunk_row(dev, np_dtype, dtype, stage3_cost))
+        rows.append(stage3_chunk_row(dev, dtype, M))
+        stage3_chunk_row(dev, dtype, R)
         red = (c.red_dl, c.red_d, c.red_du, c.red_b)
         if dtype == torch.float64:
             # The main path's reduced system of the n = 1e7 fp64 solve,
@@ -709,31 +737,34 @@ def copy_yardstick(dev: torch.device, dtype: torch.dtype, nbytes: float, label: 
     dst = torch.empty_like(src)
     ms = device_ms(lambda: dst.copy_(src))
     log(f"    copy_ yardstick, the bytes of {label} ({nbytes / 1e6:.1f} MB read + written): "
-        f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s against {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+        f"device_ms={ms:.4f}, {nbytes / ms / 1e6:.1f} GB/s against {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
 
 
-def stage3_chunk_row(dev: torch.device, np_dtype: Any, dtype: torch.dtype,
-                     cost: Callable[[int, int, int], Tuple[float, float]]) -> Dict[str, Any]:
-    """Stage 3 at the main path's chunk shape: one of the 32 chunks of the
-    n = 1e7 solve, P = 31,250, with the neighbouring chunk's ``left``. One
-    chunk's operands fit the 50 MB L2, so the launches rotate through
-    enough operand sets to exceed 64 MB, back to back behind a sleeping
-    kernel (``queued_ms``); beside it an empty kernel's launch (the floor)
-    and a ``copy_`` of the same bytes, both timed the same way."""
+def stage3_chunk_row(dev: torch.device, dtype: torch.dtype, m: int) -> Dict[str, Any]:
+    """Stage 3 at P = 31,250 blocks: one of the 32 chunks of the n = 1e7
+    solve at m = M (with the neighbouring chunk's ``left``), and the first
+    level of the reduced solve of 1e6 rows at m = R. One operand set fits
+    the 50 MB L2, so the timed calls rotate through enough sets to exceed
+    64 MB: ``ms`` is CUDA events around one call from an idle card, as every
+    kernel row; ``device_ms`` the same calls back to back behind a sleeping
+    kernel (``queued_ms``), the card's time alone. Beside them: one set
+    again and again back to back (warm, in L2, as a level's Stage 3 finds
+    its spikes just after its Stage 1), a one-element ``zero_`` kernel (the
+    launch floor) and a ``copy_`` of the same bytes."""
     from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
-    from repro_torch.kernels import build
-    from repro_torch.kernels.common import assert_allclose_by_dtype, current_stream
+    from repro_torch.kernels.common import assert_allclose_by_dtype
     from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda
 
     pb = 10_000_000 // M // 32
     tag = "f64" if dtype == torch.float64 else "f32"
     es = torch.empty((), dtype=dtype).element_size()
-    nbytes, ops = cost(1, pb, es)
+    nbytes = (3 * pb * (m - 1) + pb + 1 + pb * m) * es
+    ops = 4 * pb * (m - 1)
     nsets = max(8, int(np.ceil(64e6 / nbytes)))
-    rng = np.random.default_rng(960)
+    rng = np.random.default_rng(960 + m)
     sets = []
     for _ in range(nsets):
-        y, v, w = (torch.as_tensor(rng.standard_normal((pb, M - 1)), device=dev).to(dtype)
+        y, v, w = (torch.as_tensor(rng.standard_normal((pb, m - 1)), device=dev).to(dtype)
                    for _ in range(3))
         sv = torch.as_tensor(rng.standard_normal(pb), device=dev).to(dtype)
         left = torch.as_tensor(rng.standard_normal(()), device=dev).to(dtype)
@@ -741,26 +772,29 @@ def stage3_chunk_row(dev: torch.device, np_dtype: Any, dtype: torch.dtype,
     got = partition_stage3_cuda(*sets[0])
     plain_ms, want = timed_cuda(lambda: partition_stage3(*sets[0]), reps=5)
     assert_allclose_by_dtype(got, want, dtype)
-    ms = queued_ms([lambda st=st: partition_stage3_cuda(*st) for st in sets] * 3)
-    empty = build.entry("partition_stage3", "repro_empty_launch", (ctypes.c_void_p,))
-    stream = current_stream(dev)
-    floor = queued_ms([lambda: empty(stream)] * 64)
-    alone = cuda_ms(lambda: empty(stream), reps=20)
+    turn = itertools.cycle(sets)
+    ms = cuda_ms(lambda: partition_stage3_cuda(*next(turn)), reps=3 * nsets)
+    dev_ms = queued_ms([lambda st=st: partition_stage3_cuda(*st) for st in sets] * 3)
+    warm = queued_ms([lambda: partition_stage3_cuda(*sets[0])] * (3 * nsets))
+    tiny = torch.zeros(1, dtype=dtype, device=dev)
+    floor = queued_ms([tiny.zero_] * 64)
+    alone = cuda_ms(tiny.zero_, reps=20)
     half = int(nbytes / 2 / es)
     bufs = [(torch.ones(half, dtype=dtype, device=dev), torch.empty(half, dtype=dtype, device=dev))
             for _ in range(nsets)]
     copy_ms = queued_ms([lambda s_=s_, d_=d_: d_.copy_(s_) for s_, d_ in bufs] * 3)
     b_ms, b_by = bound(nbytes, ops, PEAK_FLOPS[dtype])
-    name = f"partition_stage3/{tag}/P={pb},m={M},chunk"
-    log(f"  {name}: {nsets} operand sets ({nsets * nbytes / 1e6:.1f} MB) in turn, back to back: "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
-        f"{b_ms / ms:.3f}; empty launch {floor:.4f} ms back to back, {alone:.4f} ms alone "
-        f"(events around one launch); copy_ of the same bytes {copy_ms:.4f} ms "
-        f"({nbytes / copy_ms / 1e6:.1f} GB/s)")
+    name = f"partition_stage3/{tag}/P={pb},m={m},chunk"
+    log(f"  {name}: {nsets} operand sets ({nsets * nbytes / 1e6:.1f} MB) in turn: ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
+        f"device_ms={dev_ms:.4f} (back to back, share {b_ms / dev_ms:.3f}); one set back to back "
+        f"(warm L2) {warm:.4f} ms; launch floor (one-element zero_) {floor:.4f} ms back to back, "
+        f"{alone:.4f} ms by events around one launch; copy_ of the same bytes back to back "
+        f"{copy_ms:.4f} ms ({nbytes / copy_ms / 1e6:.1f} GB/s)")
     return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/partition_stage3.cu",
             "replaces": "src/repro/kernels/partition_stage3/stage3.py:17", "launches": None,
             "max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "device_ms": dev_ms}
 
 
 def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -> None:
@@ -795,7 +829,6 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
     # TF32 products for each fp32 one: its bound is 3 x the operations at
     # the TF32 rate; the fp32-FMA bound on the CUDA cores is printed beside.
     nh, p, n = 64, 64, 128
-    mma_peak = mma_tf32_peak(dev)
     for g, q in ((16, 256), (4, 197)):
         u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
         nbytes, macs = ssd_cost(g, q, nh, p, n)
@@ -803,11 +836,9 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
                       lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
                       nbytes, 3 * 2 * macs, peak=TF32_TC_FLOPS)
         fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
-        sync_ms, _ = bound(nbytes, 6 * macs, mma_peak)
         log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, 67 TFLOP/s, "
             f"share {fma_ms / ms:.3f}); split-TF32 bound {bound(nbytes, 6 * macs, TF32_TC_FLOPS)[0]:.4f} "
-            f"ms (tensor cores, 3 x the operations at 495 TFLOP/s); at the measured mma.sync peak "
-            f"{sync_ms:.4f} ms (share {sync_ms / ms:.3f})")
+            f"ms (tensor cores, 3 x the operations at 495 TFLOP/s)")
         del u, dac, b, c
     ssd_edges(dev)
 
@@ -852,27 +883,6 @@ def ssd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
     return nbytes, macs
 
 
-def mma_tf32_peak(dev: torch.device) -> float:
-    """The rate (FLOP/s) that mma.sync.m16n8k8 with TF32 inputs reaches on
-    this card (csrc/ssd_stage1.cu's yardstick entry: four blocks of 128
-    threads a SM, each thread in 32 independent MMAs a round), the unit the
-    SSD kernel's products run on. A yardstick: the data sheet's 495 TFLOP/s
-    is wgmma's."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.common import current_stream
-
-    fn = build.entry("ssd_stage1", "ssd_mma_tf32_peak",
-                     (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-    blocks, iters = 4 * torch.cuda.get_device_properties(dev).multi_processor_count, 2000
-    out = torch.empty(blocks * 128, device=dev)
-    stream = current_stream(dev)
-    ms = queued_ms([lambda: fn(out.data_ptr(), blocks, iters, stream)] * 3)
-    flops = blocks * 4 * iters * 32 * 2 * 16 * 8 * 8
-    log(f"  mma.sync m16n8k8 TF32 peak: {blocks} blocks of 128 threads, {ms:.4f} ms, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s (data sheet, TF32 dense: 495)")
-    return flops / ms * 1e3
-
-
 def ssd_edges(dev: torch.device) -> None:
     """SSD Stage 1 against its plain version at the fp32 ladder over the
     chunk lengths it takes (1 ... MAX_CHUNK = 1024, the odd 197 among them)
@@ -913,127 +923,6 @@ def ssd_edges(dev: torch.device) -> None:
         off = int((e > 1e-4 + 1e-5 * y64.abs()).sum())
         log(f"    Q=1024, y against fp64: {label} max_abs_err {e.max().item():.3e}, "
             f"{off} elements off the fp32 ladder")
-
-
-# ------------------------------------------------------------------ against --
-AGAINST_KERNELS = ("ssd_stage1", "partition_stage3")
-
-
-def build_other(dirs: List[str]) -> List[Dict[str, ctypes.CDLL]]:
-    """Build ``AGAINST_KERNELS`` from each of ``dirs`` (another tree's
-    ``csrc``, with the same C entries; a kernel whose source a directory
-    lacks is skipped) into ``build/against/<i>/``, one nvcc each, all at
-    once, with this tree's flags."""
-    from repro_torch.kernels import build
-
-    jobs = []
-    for i, d in enumerate(dirs):
-        out = build.BUILD_DIR.parent / "against" / str(i)
-        out.mkdir(parents=True, exist_ok=True)
-        for name in AGAINST_KERNELS:
-            src = Path(d) / f"{name}.cu"
-            if src.exists():
-                cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(src)]
-                jobs.append((i, name, out / f"{name}.so",
-                             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                              text=True)))
-    libs: List[Dict[str, ctypes.CDLL]] = [{} for _ in dirs]
-    for i, name, path, proc in jobs:
-        _, err = proc.communicate()
-        assert proc.returncode == 0, f"nvcc failed on {dirs[i]}/{name}.cu:\n{err}"
-        libs[i][name] = ctypes.CDLL(str(path))
-    return libs
-
-
-def against_phase(dev: torch.device, dirs: List[str]) -> None:
-    """This tree's SSD Stage 1 and system-major Stage 3 against the same C
-    entries built from other sources (``--against``: for example the parent
-    commit's ``csrc``, unpacked with ``git archive`` into a directory that
-    .gitignore lists), at the main path's shapes, in one call. Both sides
-    are the bare C entry on the same preallocated tensors (no wrapper), timed
-    on the device (``device_ms``) and with CUDA events around each call
-    from an idle card, in turn (other, this, this, other).
-    Stage 3 must agree bit for bit; both SSD builds are held against the
-    plain version at the fp32 ladder."""
-    from repro_torch.core.tridiag.partition import PartitionCoeffs, partition_stage3
-    from repro_torch.kernels import build, common
-    from repro_torch.kernels.common import assert_allclose_by_dtype, current_stream
-    from repro_torch.kernels.partition_stage3 import ops as s3ops
-    from repro_torch.kernels.ssd_stage1 import ops as ssdops
-    from repro_torch.kernels.thomas.ops import R
-    from repro_torch.models.layers.ssm import ssd_stage1
-
-    t0 = time.perf_counter()
-    libs = build_other(dirs)
-    log(f"  built {[sorted(lib) for lib in libs]} from {dirs} in {time.perf_counter() - t0:.2f} s")
-    stream = current_stream(dev)
-
-    def entry(lib: Optional[ctypes.CDLL], name: str, symbol: str, argtypes: Tuple[type, ...]) -> Any:
-        if lib is None:
-            return build.entry(name, symbol, argtypes)
-        fn = getattr(lib, symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        return fn
-
-    def caller(fn: Any, args: List[Any]) -> Callable[[], None]:
-        def run() -> None:
-            code = fn(*args, stream)
-            assert code == 0, code
-        return run
-
-    def turn(this: Callable[[], None], other: Callable[[], None]) -> str:
-        d = [device_ms(fn) for fn in (other, this, this, other)]
-        d_this, d_other = (d[1] + d[2]) / 2, (d[0] + d[3]) / 2
-        t = alternating_ms([other, this, this, other], reps=20)
-        e_this, e_other = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        return (f"device: this {d_this:.4f} ms, other {d_other:.4f} ms (this/other "
-                f"{d_this / d_other:.3f}); events around one call, in turn: this {e_this:.4f} ms, "
-                f"other {e_other:.4f} ms")
-
-    for d, lib in zip(dirs, libs):
-        if "partition_stage3" in lib:
-            rng = np.random.default_rng(970)
-            for bsz, pb, m, dtype in ((1, 1_000_000, M, torch.float64), (1, 1_000_000, M, torch.float32),
-                                      (64, 10_000, M, torch.float64), (64, 10_000, M, torch.float32),
-                                      (1, 10_000_000 // M // 32, M, torch.float64),
-                                      (1, 31_250, R, torch.float64)):
-                symbol = f"partition_stage3_{common.KERNEL_DTYPES[dtype]}"
-                y, v, w = (torch.as_tensor(rng.standard_normal((bsz, pb, m - 1)), device=dev).to(dtype)
-                           for _ in range(3))
-                sv = torch.as_tensor(rng.standard_normal((bsz, pb)), device=dev).to(dtype)
-                left = torch.as_tensor(rng.standard_normal(bsz), device=dev).to(dtype)
-                outs = [torch.empty(bsz, pb * m, dtype=dtype, device=dev) for _ in range(2)]
-                this, other = (caller(entry(src, "partition_stage3", symbol, s3ops._ARGS),
-                                      [t.data_ptr() for t in (y, v, w, sv, left, x)] + [bsz, pb, m])
-                               for src, x in ((None, outs[0]), (lib["partition_stage3"], outs[1])))
-                this()
-                other()
-                assert torch.equal(*outs), f"Stage 3 differs from {d} at {(bsz, pb, m, dtype)}"
-                assert_allclose_by_dtype(outs[0], partition_stage3(
-                    PartitionCoeffs(y, v, w, *(sv,) * 4), sv, left), dtype)
-                log(f"  partition_stage3 B={bsz},P={pb},m={m} {symbol[-3:]} against {d}, "
-                    f"bit-identical; {turn(this, other)}")
-                del y, v, w, sv, left, outs
-        if "ssd_stage1" in lib:
-            nh, p, n = 64, 64, 128
-            for g, q in ((16, 256), (4, 197)):
-                u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
-                outs = [(torch.empty_like(u), torch.empty(g, nh, p, n, device=dev),
-                         torch.empty(g, q, common.round_up(q, 4), device=dev)) for _ in range(2)]
-                this, other = (caller(entry(src, "ssd_stage1", "ssd_stage1_f32", ssdops._ARGS),
-                                      [t.data_ptr() for t in (u, dac, b, c, *o)] + [g, q, nh, p, n])
-                               for src, o in ((None, outs[0]), (lib["ssd_stage1"], outs[1])))
-                this()
-                other()
-                want = ssd_stage1(u, dac, b, c)
-                errs = []
-                for o in outs:
-                    for gt, wt in zip(o[:2], want):
-                        assert_allclose_by_dtype(gt, wt, torch.float32)
-                    errs.append(max(max_err(gt, wt) for gt, wt in zip(o[:2], want)))
-                log(f"  ssd_stage1 G={g},Q={q} against {d}: max_abs_err this {errs[0]:.3e}, "
-                    f"other {errs[1]:.3e}; {turn(this, other)}")
-                del u, dac, b, c, outs
 
 
 # --------------------------------------------------------------------- main --
@@ -1482,9 +1371,9 @@ def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
 
 def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
     """Where one full-width bf16 prefill of 4 x 1024 tokens and one decode
-    step at batch 4 go: the whole step with CUDA events, each part on its
-    own as device time (``device_ms``, 48 times one layer's part), the rest
-    by difference."""
+    step at batch 4 go: each part timed on its own with CUDA events (48
+    times one layer's part), the rest by difference. The SSD kernel's
+    device time (``device_ms``) is printed beside."""
     from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel, ssd_stage1_cuda
     from repro_torch.models.layers.embedding import logits_out
     from repro_torch.models.registry import build_model
@@ -1509,23 +1398,23 @@ def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
                     params, caches, {"token": tokens, "pos": pos}, pctx), reps=10, warmup=2)
             x = torch.randn(bsz, s, d, generator=gen, device=dev).to(bf16)
             y = torch.randn(bsz, s, di, generator=gen, device=dev).to(bf16)
-            proj = device_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
-                                      x @ layer.w_dt, y @ layer.out_proj)) * layers
-            logits = device_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
+            proj = cuda_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
+                                    x @ layer.w_dt, y @ layer.out_proj), reps=10) * layers
+            logits = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
             parts = {"projections": proj, "logits": logits}
             if s > 1:
                 xh = torch.randn(bsz, s, nh, p, generator=gen, device=dev)
                 dt = torch.nn.functional.softplus(torch.randn(bsz, s, nh, generator=gen, device=dev))
                 a = -torch.exp(layer.a_log)
                 b_in, c_in = (torch.randn(bsz, s, n, generator=gen, device=dev) for _ in range(2))
-                scan = device_ms(lambda: ssd_scan_kernel(xh, dt, a, b_in, c_in,
-                                                         chunk=cfg.ssm_chunk)) * layers
+                scan = cuda_ms(lambda: ssd_scan_kernel(xh, dt, a, b_in, c_in, chunk=cfg.ssm_chunk),
+                               reps=10) * layers
                 g, q = bsz * s // cfg.ssm_chunk, cfg.ssm_chunk
                 u, dac, bc, cc = (xh.reshape(g, q, nh, p), (dt * a).reshape(g, q, nh),
                                   b_in.reshape(g, q, n), c_in.reshape(g, q, n))
-                kernel = device_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc)) * layers
-                log(f"    ssd_stage1 with CUDA events around one call from an idle card: "
-                    f"{cuda_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc), reps=10) * layers:.3f} ms "
+                kernel = cuda_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc), reps=10) * layers
+                log(f"    ssd_stage1 device time (device_ms, cold L2): "
+                    f"{device_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc)) * layers:.3f} ms "
                     f"for {layers} layers")
                 parts.update({"ssd_stage1 kernel": kernel,
                               "ssd stages 2-3 and glue": scan - kernel})
@@ -1539,10 +1428,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help=f"comma list of phases, from {ALL_PHASES}")
-    parser.add_argument("--against", default="",
-                        help="comma list of other csrc directories whose ssd_stage1.cu and "
-                             "partition_stage3.cu are timed in turn against this tree's "
-                             "(run after the kernels phase)")
     args = parser.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
@@ -1574,9 +1459,6 @@ def main() -> int:
     if "kernels" in phases:
         log("kernels: each kernel against its plain version on the card")
         rows = kernel_phase(dev)
-    if args.against:
-        log(f"against: this tree's ssd_stage1 and partition_stage3 against {args.against}")
-        against_phase(dev, [d for d in args.against.split(",") if d])
     # Launch counts come from the path that runs each kernel (the main phase
     # for the solver's, the lm phase for the SSD kernel's); a kernel whose
     # path did not run has none.

@@ -16,11 +16,3 @@ static inline unsigned int repro_grid(long long work) {
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// An empty kernel: its launch time is the floor under any kernel's launch.
-__global__ void repro_empty_kernel() {}
-
-extern "C" int repro_empty_launch(void* stream) {
-  repro_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}

@@ -21,7 +21,7 @@
 // at least 0.130 ms as fp32 FMAs on the CUDA cores (67 TFLOP/s), and at
 // least 0.053 ms as the three TF32 products of split TF32 on the tensor
 // cores (3 x 8.74 GFLOP at the data sheet's 495 TFLOP/s, which only wgmma
-// reaches; mma.sync, used here, peaks lower: ssd_mma_tf32_peak measures it).
+// reaches; mma.sync, used here, peaks lower on an H100: PERF.md).
 //
 // Precision. Every operand x of a product is split as x = hi + lo with
 // hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (x - hi is exact), and
@@ -565,19 +565,18 @@ extern "C" int ssd_stage1_f32(const void* u, const void* dac, const void* b, con
   const bool vec_u = aligned16(u) && P % 4 == 0;
   const bool vec_y = P % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0;
   const bool vec_st = N % 2 == 0 && (reinterpret_cast<uintptr_t>(state) & 7) == 0;
-  static int attr = -1;  // per process: the attributes are per function
-  if (attr != 0) {
-    attr = set_smem(ssd_y_kernel, y_smem_bytes(kMaxQ));
-    if (attr == 0) attr = set_smem(ssd_state_kernel, sizeof(StateSmem));
-    if (attr != 0) return attr;
-  }
+  // Both kernels take more than 48 KB of dynamic shared memory. The
+  // attribute is per device, so it is set at every launch.
+  int err = set_smem(ssd_y_kernel, y_smem_bytes(kMaxQ));
+  if (err == 0) err = set_smem(ssd_state_kernel, sizeof(StateSmem));
+  if (err != 0) return err;
   const int qtiles = (Q + kT - 1) / kT;
   const unsigned cells = static_cast<unsigned>(G * H), pblocks = (P + kPT - 1) / kPT;
   const unsigned pairs = static_cast<unsigned>(G * ((H + kSH - 1) / kSH));
   ssd_scores_kernel<<<dim3(qtiles, qtiles, static_cast<unsigned>(G)), kThreads, 0, s>>>(
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<float*>(scores), Q, N, ld, vec_bc);
-  int err = static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   ssd_state_kernel<<<dim3(pairs, pblocks, (N + kNT - 1) / kNT), kThreads, sizeof(StateSmem),
                      s>>>(static_cast<const float*>(u), static_cast<const float*>(dac),
@@ -588,29 +587,5 @@ extern "C" int ssd_stage1_f32(const void* u, const void* dac, const void* b, con
   ssd_y_kernel<<<dim3(cells, pblocks), kThreads, y_smem_bytes(Q), s>>>(
       static_cast<const float*>(u), static_cast<const float*>(dac),
       static_cast<const float*>(scores), static_cast<float*>(y), Q, H, P, ld, vec_u, vec_y);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A yardstick, not part of the stage: the rate mma.sync.m16n8k8 (TF32 in,
-// fp32 out) reaches on this card, from `blocks` blocks of 128 threads each
-// issuing `iters` rounds of 32 independent MMAs; out takes one float a
-// thread so that nothing is optimised away.
-namespace {
-__global__ void __launch_bounds__(kThreads) mma_peak_kernel(float* out, int iters) {
-  const uint32_t a[4] = {threadIdx.x, 1u, 2u, 3u}, b[2] = {5u, 7u};
-  float acc[32][4] = {};
-  for (int it = 0; it < iters; ++it)
-#pragma unroll
-    for (int j = 0; j < 32; ++j) mma_tf32(acc[j], a, b);
-  float t = 0.f;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) t += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = t;
-}
-}  // namespace
-
-extern "C" int ssd_mma_tf32_peak(void* out, int blocks, int iters, void* stream) {
-  mma_peak_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), iters);
   return static_cast<int>(cudaGetLastError());
 }
