@@ -19,7 +19,10 @@ Phases:
    launch work is not in it, with the L2 evicted before each), the plain
    version's time and the bound (bytes over 3.35 TB/s or operations over
    the peak rate of the unit that runs them, whichever is larger); for the
-   matvec the CSR sparse product's time. Stage 1 is also held against its plain
+   matvec the CSR sparse product's time. The wide rows also print the
+   wrapper's host enqueue time (``enqueue_ms``), and the wide stages are
+   timed at the reduced solve's level shapes too (m = R: P = 32, B = 1024
+   and P = 313, B = 64). Stage 1 is also held against its plain
    version at block sizes m = 2 ... 100. Every Thomas row prints its level
    sizes and its time at a base of n0 = 64 rows, and must give the same
    bits twice; the reduced solve is also held against the fp64 host oracle
@@ -34,7 +37,11 @@ Phases:
    path's chunk shape (m = 10) and the reduced solve's first level (m = 32),
    with operand sets rotated past the L2 and with one set warm in it,
    beside a one-element kernel's launch (the floor) and a ``copy_`` of the
-   same bytes. The SSD stage is held against its plain version (on the CPU)
+   same bytes. The wide stages are held against their plain versions at
+   their edges (``wide_edges``): m = 2 ... 100 across the tile path's
+   largest m, B = 1 ... 1027, P = 1, unaligned operands and spikes, a row
+   count m does not divide with NaN past it, ignored ends and identity
+   rows past P. The SSD stage is held against its plain version (on the CPU)
    at chunk lengths 1 ... 1024 and ragged widths, with its fp32-FMA and
    split-TF32 bounds.
 3. ``main``: the port's main path through ``TridiagSession`` on
@@ -59,7 +66,8 @@ Phases:
    stage, from CUDA events and the host clock around the copies, how long
    the host takes to enqueue the n = 1e7 fused path and its reduced solve,
    and, from ``torch.profiler``, each one's device busy time, idle share
-   and largest device entries (the wide reduced solve's too).
+   and largest device entries (the wide reduced solve's too, which must be
+   three kernels at P = 1,000, B = 1024: Stage 1, the base, Stage 3).
 5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
@@ -267,7 +275,8 @@ def queued_ms(fns: List[Callable[[], Any]], reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, top: int = 5) -> None:
+def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3,
+                   top: int = 5) -> List[Tuple[float, int, str]]:
     """``fn`` under ``torch.profiler``: the device's busy time a call (the
     sum of its kernels' and copies' device times; one stream, so they do
     not overlap), its idle share against ``ms`` (the call's CUDA-event time,
@@ -275,7 +284,8 @@ def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, 
     count a call. One call warms the profiler up before the ``reps`` it
     records, each of which ends on a synchronisation. A trace with no device
     entries at all (the device tracer did not attach) is taken again, at
-    most ``PROFILE_ATTEMPTS`` times in all."""
+    most ``PROFILE_ATTEMPTS`` times in all. Returns the device entries,
+    (ms a call, count a call, name), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -305,6 +315,7 @@ def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3, 
     log(f"    profiler, {label}: device busy {busy:.4f} ms a call against {ms:.4f} ms "
         f"(idle share {1 - busy / ms:.3f}); largest: "
         + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for t, c, k in entries[:top]))
+    return entries
 
 
 def bound(nbytes: float, ops: float, peak: float) -> Tuple[float, str]:
@@ -338,6 +349,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
     from repro_torch.core.tridiag.partition import partition_stage1, partition_stage3
     from repro_torch.core.tridiag.ragged import fuse_ragged
     from repro_torch.core.tridiag.thomas import thomas
+    from repro_torch.kernels import common
     from repro_torch.kernels.common import assert_allclose_by_dtype
     from repro_torch.kernels.partition_stage1.ops import (
         partition_stage1_cuda,
@@ -381,7 +393,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
               nbytes: float, ops: float, reps: int = 20, plain_reps: int = 5,
               plain_warmup: int = 2,
               library: Optional[Callable[[], Any]] = None,
-              peak: Optional[float] = None) -> Tuple[Any, float]:
+              peak: Optional[float] = None, host: bool = False) -> Tuple[Any, float]:
         """Run, compare and time one kernel against its plain version (and
         one PyTorch call computing the same function, where there is one);
         returns the kernel's output and its median ms. ``ms`` (and
@@ -389,7 +401,9 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         the wrapper's host work included; ``device_ms`` beside it is the
         card's time alone, with a cold L2. ``peak``: the rate of the unit
         that runs the kernel's operations (default: the CUDA cores' rate for
-        ``dtype``)."""
+        ``dtype``). With ``host``, the row also gets ``enqueue_ms``, the
+        host's time for the wrapper to return from an idle card, which
+        accounts for the gap between ``ms`` and ``device_ms``."""
         got = kernel()
         plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
         torch.cuda.synchronize()
@@ -407,24 +421,28 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             assert_allclose_by_dtype(lib_out, got, dtype)
         b_ms, b_by = bound(nbytes, ops, PEAK_FLOPS[dtype] if peak is None else peak)
         source, replaces = sources[name.split("/")[0]]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
-        })
+        }
+        if host:
+            row["enqueue_ms"] = enqueue_ms(kernel, reps=10)
+        rows.append(row)
         log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
             f"device_ms={dev_ms:.4f} (share {b_ms / dev_ms:.3f})"
+            + (f" enqueue_ms={row['enqueue_ms']:.4f}" if host else "")
             + (f" library_ms={lib_ms:.4f} (device {lib_dev_ms:.4f})" if lib_ms is not None else ""))
         return got, ms
 
-    def stage1_cost(bsz: int, p: int, es: int) -> Tuple[float, float]:
-        n = p * M
-        nbytes = bsz * (4 * n + 3 * p * (M - 1) + 4 * p) * es
-        return nbytes, bsz * p * (6 * (M - 2) + 3 + 9 * (M - 3) + 10)
+    def stage1_cost(bsz: int, p: int, es: int, m: int = M) -> Tuple[float, float]:
+        n = p * m
+        nbytes = bsz * (4 * n + 3 * p * (m - 1) + 4 * p) * es
+        return nbytes, bsz * p * (6 * (m - 2) + 3 + 9 * (m - 3) + 10)
 
-    def stage3_cost(bsz: int, p: int, es: int) -> Tuple[float, float]:
-        return bsz * (3 * p * (M - 1) + p + 1 + p * M) * es, bsz * 4 * p * (M - 1)
+    def stage3_cost(bsz: int, p: int, es: int, m: int = M) -> Tuple[float, float]:
+        return bsz * (3 * p * (m - 1) + p + 1 + p * m) * es, bsz * 4 * p * (m - 1)
 
     def check_thomas(tag: str, dtype: torch.dtype, es: int, ops4: Tuple[torch.Tensor, ...],
                      wide: bool = False, **kw: Any) -> float:
@@ -464,17 +482,24 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
 
     def check_wide(tag: str, dtype: torch.dtype, es: int, wide: Tuple[torch.Tensor, ...],
                    seed: int, suffix: str = "") -> Any:
-        """Wide Stage 1 and Stage 3 at one interleaved shape; returns the coeffs."""
-        wp, _, wb = wide[1].shape
-        label = f"P={wp},m={M},B={wb}{suffix}"
+        """Wide Stage 1 and Stage 3 at one interleaved (P, m, B) shape, each
+        with its host enqueue time; returns the coeffs."""
+        wp, m, wb = wide[1].shape
+        label = f"P={wp},m={m},B={wb}{suffix}"
         c, _ = check(f"partition_stage1_wide/{tag}/{label}", dtype,
-                     lambda: partition_stage1_cuda_wide(*wide, m=M),
-                     lambda: layout.partition_stage1_wide(*wide, m=M), *stage1_cost(wb, wp, es))
+                     lambda: partition_stage1_cuda_wide(*wide, m=m),
+                     lambda: layout.partition_stage1_wide(*wide, m=m), *stage1_cost(wb, wp, es, m),
+                     host=True)
         s = torch.as_tensor(np.random.default_rng(seed).standard_normal((wp, wb)), device=dev).to(dtype)
         check(f"partition_stage3_wide/{tag}/{label}", dtype,
               lambda: partition_stage3_cuda_wide(c, s), lambda: layout.partition_stage3_wide(c, s),
-              *stage3_cost(wb, wp, es))
+              *stage3_cost(wb, wp, es, m), host=True)
         return c
+
+    def level_ops(n: int, bsz: int, seed: int, np_dtype: Any) -> Tuple[torch.Tensor, ...]:
+        """A level of the wide reduced solve: (n, B) rows as (n/R, R, B) blocks."""
+        return tuple(torch.as_tensor(a, device=dev).T.contiguous().view(n // R, R, bsz)
+                     for a in system(n, seed, np_dtype, batch=(bsz,))[:4])
 
     p = 1_000_000
     for np_dtype, dtype in ((np.float64, torch.float64), (np.float32, torch.float32)):
@@ -547,6 +572,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         assert_allclose_by_dtype(thomas_cuda(*red_t).T, thomas_cuda_wide(*red_w), dtype)
         log(f"    same rows on the (B, n) route: {sm_ms:.4f} ms, wide/(B, n) = {wide_ms / sm_ms:.3f}")
         del fused, c, red_w, red_t
+        # The first level of that wide reduced solve: P = 313 blocks of
+        # m = R rows (10,000 rows padded to 10,016), B = 64.
+        check_wide(tag, dtype, es, level_ops(common.round_up(bn // M, R), bsz, 22, np_dtype),
+                   seed=23, suffix=",level")
 
         if dtype == torch.float64:
             # solve_batched of 1024 x 10,000 (P = 1,000, B = 1024).
@@ -556,6 +585,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             check_thomas(tag, dtype, es, (c.red_dl, c.red_d, c.red_du, c.red_b), wide=True,
                          reps=5, plain_reps=1, plain_warmup=1)
             del fused, c
+            # Its first level: P = 32 blocks of m = R rows (1,000 rows
+            # padded to 1,024), B = 1024.
+            check_wide(tag, dtype, es, level_ops(common.round_up(1_000, R), 1024, 24, np_dtype),
+                       seed=25, suffix=",level")
             # solve_many of 48 ragged systems, 60,000 ... 100,000 rows: the
             # shorter ones padded with identity blocks to P_max = 10,000.
             sizes = RAGGED_48
@@ -574,6 +607,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         thomas_ignored_ends(dev, np_dtype, dtype)
         stage1_edges(dev, np_dtype, dtype)
         stage3_edges(dev, np_dtype, dtype)
+        wide_edges(dev, np_dtype, dtype)
         if dtype == torch.float64:
             n0_sweep(dev)
 
@@ -726,6 +760,109 @@ def stage3_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
             errs.append(max_err(got, want))
     log(f"  partition_stage3 at the edges, {np_dtype.__name__}: (B, P, m) in {cases}, spikes at "
         f"element offsets 0 and 1/2/3, nonzero left: max_abs_err={max(errs):.3e}")
+
+
+def wide_edges(dev: torch.device, np_dtype: Any, dtype: torch.dtype) -> None:
+    """The wide Stage 1 and Stage 3 against their plain versions at their
+    edges: m = 2, 3, M, R, the tile path's largest m and the first past it,
+    and 100; B = 1, 3, 48, 64, 1000, 1027 lanes (rows of 16 bytes or not);
+    P = 37 (a ragged last tile) and P = 1. At each (m, B): (P, m, B)
+    operands and spikes as allocated and at element offsets 1/2/3 (not 16
+    bytes aligned); then Stage 1 on (n, B) rows with n = P*m - max(1, m//3),
+    at offsets 0 and 1/2/3, the caller's buffer NaN past row n (a kernel
+    that loaded those rows would not stay finite), dl[0] = 1e3 and
+    du[n-1] = -1e3 read as zero (``zero_ends``), and red_rows = P + 5,
+    whose identity rows past P must be exact. At each m, Stage 3 also at
+    2**17 columns, where one thread takes each (block, lane group)."""
+    from repro_torch.core.tridiag import layout
+    from repro_torch.core.tridiag.partition import PartitionCoeffs
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.kernels.partition_stage1.ops import (
+        partition_stage1_cuda_wide,
+        run_stage1_wide,
+        wide_tile_blocks,
+    )
+    from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_wide
+    from repro_torch.kernels.thomas.ops import R
+
+    largest = 2
+    while wide_tile_blocks(largest + 1) > 0:
+        largest += 1
+    ms = (2, 3, M, R, largest, largest + 1, 100)
+    lanes = (1, 3, 48, 64, 1000, 1027)
+    rng = np.random.default_rng(970)
+    nan = float("nan")
+    es = torch.empty((), dtype=dtype).element_size()
+
+    def placed(a: torch.Tensor, offset: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        """``a`` copied into a NaN buffer, ``offset`` elements past an
+        aligned start, with a row of NaN after it."""
+        size = int(np.prod(shape))
+        buf = torch.full((offset + size + shape[-1],), nan, dtype=dtype, device=dev)
+        view = buf[offset:offset + size].view(shape)
+        view.copy_(a.reshape(shape))
+        return view
+
+    def compare(got: Any, want: Any) -> float:
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            assert tuple(g.shape) == tuple(w.shape), (tuple(g.shape), tuple(w.shape))
+            assert bool(torch.isfinite(g).all()), "non-finite output"
+            assert_allclose_by_dtype(g, w, dtype)
+        return max(max_err(g, w) for g, w in pairs)
+
+    errs = []
+    cases = 0
+    for m in ms:
+        for bsz in lanes:
+            for pb in (37, 1):
+                n = pb * m
+                host = system(n, 1000 + m + bsz + pb, np_dtype, batch=(bsz,))[:4]
+                rows = [torch.as_tensor(a, device=dev).T.contiguous() for a in host]
+                for offsets in ((0, 0, 0, 0), (1, 2, 3, 0)):
+                    wide = tuple(placed(a, o, (pb, m, bsz)) for a, o in zip(rows, offsets))
+                    c = partition_stage1_cuda_wide(*wide, m=m)
+                    errs.append(compare(tuple(c), tuple(layout.partition_stage1_wide(*wide, m=m))))
+                    spikes = [placed(a, o, (pb, m - 1, bsz)) for a, o in zip(c[:3], offsets)]
+                    sv = placed(torch.as_tensor(rng.standard_normal((pb, bsz)), device=dev).to(dtype),
+                                offsets[0], (pb, bsz))
+                    cs = PartitionCoeffs(*spikes, *(sv,) * 4)
+                    errs.append(compare(partition_stage3_cuda_wide(cs, sv),
+                                        layout.partition_stage3_wide(cs, sv)))
+                    cases += 2
+                if pb == 1:
+                    continue
+                # A row count m does not divide, ends to be ignored, NaN past n.
+                n = pb * m - max(1, m // 3)
+                loud = [a[:n].clone() for a in rows]
+                loud[0][0] = 1e3
+                loud[2][n - 1] = -1e3
+                for offsets in ((0, 0, 0, 0), (1, 2, 3, 0)):
+                    ops = [placed(a, o, (n, bsz)) for a, o in zip(loud, offsets)]
+                    got = run_stage1_wide(*ops, m, red_rows=pb + 5, zero_ends=True)
+                    torch.cuda.synchronize()
+                    want = layout.partition_stage1_wide(*ops, m=m, zero_ends=True)
+                    errs.append(compare(tuple(got[:3]) + tuple(a[:pb] for a in got[3:]), tuple(want)))
+                    for a, fill in zip(got[3:], (0.0, 1.0, 0.0, 0.0)):
+                        assert bool((a[pb:] == fill).all()), "identity rows past P"
+                    cases += 1
+        # Stage 3 from 2**17 (block, lane group) columns up, where one
+        # thread takes a column: 16-byte lane groups (B = 1024) and lanes
+        # one by one (B = 1027, and spikes at offsets 1/2/3).
+        for bsz, offsets in ((1024, (0, 0, 0, 0)), (1027, (0, 0, 0, 0)), (1024, (1, 2, 3, 0))):
+            groups = bsz // (16 // es) if bsz * es % 16 == 0 and offsets[0] == 0 else bsz
+            pb = -(-2**17 // groups)
+            spikes = [placed(torch.as_tensor(rng.standard_normal((pb, m - 1, bsz)), device=dev).to(dtype),
+                             o, (pb, m - 1, bsz)) for o in offsets[:3]]
+            sv = torch.as_tensor(rng.standard_normal((pb, bsz)), device=dev).to(dtype)
+            cs = PartitionCoeffs(*spikes, *(sv,) * 4)
+            errs.append(compare(partition_stage3_cuda_wide(cs, sv), layout.partition_stage3_wide(cs, sv)))
+            cases += 1
+    log(f"  partition_stage1_wide / partition_stage3_wide at the edges, {np_dtype.__name__}: "
+        f"m in {ms} (tile blocks {[wide_tile_blocks(m) for m in ms]}), B in {lanes}, P in (37, 1), "
+        f"operands and spikes at offsets 0 and 1/2/3; (n, B) rows with n = P*m - max(1, m//3), "
+        f"NaN past n, dl[0] = 1e3, du[n-1] = -1e3 with zero_ends, red_rows = P + 5: {cases} cases, "
+        f"max_abs_err={max(errs):.3e}, identity rows exact")
 
 
 def copy_yardstick(dev: torch.device, dtype: torch.dtype, nbytes: float, label: str) -> None:
@@ -1215,7 +1352,13 @@ def interleaved_breakdown(dev: torch.device) -> None:
     red = (c.red_dl, c.red_d, c.red_du, c.red_b)
     s2 = cuda_ms(lambda: thomas_cuda_wide(*red), reps=5)
     s = thomas_cuda_wide(*red)
-    device_profile("wide reduced solve P=1000, B=1024", lambda: thomas_cuda_wide(*red), s2)
+    # One level (1,000 > N0 rows): Stage 1 on the caller's rows, the base and
+    # Stage 3, and no copy of the caller's rows.
+    entries = device_profile("wide reduced solve P=1000, B=1024", lambda: thomas_cuda_wide(*red), s2)
+    launched = sum(c for _, c, _ in entries)
+    assert launched == 3, f"thomas_cuda_wide at P=1000, B=1024 ran {launched} device entries: {entries}"
+    log(f"    thomas_cuda_wide at P=1000, B=1024: {launched} device kernels a call "
+        f"({', '.join(k[:40] for _, _, k in entries)})")
     s3 = cuda_ms(lambda: partition_stage3_cuda_wide(c, s), reps=5)
     xw = partition_stage3_cuda_wide(c, s)
     scatter = cuda_ms(lambda: layout.deinterleave(xw, sizes, M), reps=5)

@@ -188,12 +188,34 @@ def _to_systems(a: Tensor) -> Tensor:
     return a.permute(2, 0, 1).reshape(bsz, p * k)
 
 
-def partition_stage1_wide(dlw: Tensor, dw: Tensor, duw: Tensor, bw: Tensor, *, m: int) -> PartitionCoeffs:
+def partition_stage1_wide(
+    dlw: Tensor, dw: Tensor, duw: Tensor, bw: Tensor, *, m: int, zero_ends: bool = False
+) -> PartitionCoeffs:
     """Stage 1 on wide operands: spikes (P, m-1, B), reduced rows (P, B).
 
-    The next-block shift of the reduced rows runs along P and is zero at
-    p = P-1, as on each system-major system.
+    Operands are (P, m, B) blocks, or (n, B) rows of any row count n, cut
+    into P = ⌈n/m⌉ blocks whose rows past n are identity rows (d = 1, the
+    rest 0). ``zero_ends`` reads each lane's dl[0] and du[n-1] as zero, as a
+    Thomas solve ignores them. Both act on copies; the operands are never
+    written. The next-block shift of the reduced rows runs along P and is
+    zero at p = P-1, as on each system-major system.
     """
+    if dw.ndim == 3:
+        dlw, dw, duw, bw = (a.reshape(-1, a.shape[-1]) for a in (dlw, dw, duw, bw))
+    n, bsz = dw.shape
+    p = -(-n // m)
+    if n < p * m or zero_ends:
+
+        def rows(a: Tensor, fill: float) -> Tensor:
+            out = a.new_full((p * m, bsz), fill)
+            out[:n] = a
+            return out
+
+        dlw, dw, duw, bw = rows(dlw, 0.0), rows(dw, 1.0), rows(duw, 0.0), rows(bw, 0.0)
+        if zero_ends:
+            dlw[0] = 0.0
+            duw[n - 1] = 0.0
+    dlw, dw, duw, bw = (a.reshape(p, m, bsz) for a in (dlw, dw, duw, bw))
     c = partition.partition_stage1(*(_to_systems(a) for a in (dlw, dw, duw, bw)), m)
     return PartitionCoeffs(
         *(a.permute(1, 2, 0) for a in (c.y, c.v, c.w)),

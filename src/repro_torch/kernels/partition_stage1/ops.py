@@ -11,8 +11,14 @@ reference stage, :func:`repro_torch.core.tridiag.partition.partition_stage1`.
 
 :func:`partition_stage1_cuda_wide` replaces ``_stage1_kernel_wide`` and its
 glue ``_stage1_impl_wide`` on the interleaved layout. Its kernel is
-``csrc/partition_stage1_wide.cu``, one thread per (block, system), and its
-plain version :func:`repro_torch.core.tridiag.layout.partition_stage1_wide`.
+``csrc/partition_stage1_wide.cu``: one CUDA block per tile of consecutive
+partition blocks by one 128-byte line of lanes, loaded into shared memory
+with 16-byte copies, each thread walking one (block, lane) column in place;
+each spike is written once, the reduced rows come from a one-block halo in
+the same kernel, and rows past a lane's row count are identity rows that
+are never loaded (blocks of more than 64 rows are walked from device
+memory, their reduced rows assembled by a second kernel). Its plain version
+is :func:`repro_torch.core.tridiag.layout.partition_stage1_wide`.
 
 :func:`run_stage1` and :func:`run_stage1_wide` launch the kernels without
 counting: the levels of the reduced solve (``kernels/thomas/ops.py``) run
@@ -41,7 +47,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGS = (_P,) * 11 + (_LL, _LL, _LL, _I, _I, _P)
-_WIDE_ARGS = (_P,) * 11 + (_LL, _LL, _I, _P)
+_WIDE_ARGS = (_P,) * 11 + (_LL, _LL, _LL, _LL, _I, _I, _P)
 
 
 def run_stage1(
@@ -110,32 +116,41 @@ def partition_stage1_cuda_batched(
 
 
 def run_stage1_wide(
-    dlw: Tensor, dw: Tensor, duw: Tensor, bw: Tensor, m: int, *,
-    red_rows: Optional[int] = None, stream: Optional[int] = None,
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, m: int, *,
+    red_rows: Optional[int] = None, zero_ends: bool = False, stream: Optional[int] = None,
 ) -> PartitionCoeffs:
-    """Launch wide Stage 1 on contiguous (P, m, B) CUDA operands, uncounted.
-    With ``red_rows``, the (P, B) reduced rows are the first P of
-    ``red_rows`` rows, the rest identity rows: a level's next operands.
-    ``stream``: see :func:`repro_torch.kernels.common.call`."""
-    p, _, bsz = dw.shape
+    """Launch wide Stage 1 on contiguous CUDA operands, uncounted: (n, B)
+    rows of any row count n, or (P, m, B) blocks (n = P·m), cut into P =
+    ⌈n/m⌉ blocks of m rows, the rows past n read as identity rows and never
+    loaded. With ``red_rows``, the (P, B) reduced rows are the first P of
+    ``red_rows`` rows, the rest identity rows the kernel writes: a level's
+    next operands. ``zero_ends`` reads each lane's dl[0] and du[n-1] as
+    zero; ``stream``: see :func:`repro_torch.kernels.common.call`."""
+    bsz = d.shape[-1]
+    n = math.prod(d.shape[:-1])
+    p = common.cdiv(n, m)
     rows = p if red_rows is None else red_rows
+    if rows < p:
+        raise ValueError(f"red_rows={rows} is fewer than the {p} blocks")
     suffix = common.check_kernel_operands(
-        "partition_stage1_wide", (dlw, dw, duw, bw), [dw.shape] * 4
+        "partition_stage1_wide", (dl, d, du, b), [d.shape] * 4
     )
-    spikes = torch.empty((3, p, m - 1, bsz), dtype=dw.dtype, device=dw.device)
-    if rows > p:  # the kernel writes the first P rows
-        red = torch.zeros((4, rows, bsz), dtype=dw.dtype, device=dw.device)
-        red[1, p:] = 1.0
-    else:
-        red = torch.empty((4, rows, bsz), dtype=dw.dtype, device=dw.device)
+    spikes = torch.empty((3, p, m - 1, bsz), dtype=d.dtype, device=d.device)
+    red = torch.empty((4, rows, bsz), dtype=d.dtype, device=d.device)
     y, v, w = spikes.unbind(0)
     reds = red.unbind(0)
-    args = [t.data_ptr() for t in (dlw, dw, duw, bw, y, v, w, *reds)]
+    args = [t.data_ptr() for t in (dl, d, du, b, y, v, w, *reds)]
     common.call(
         "partition_stage1_wide", "partition_stage1_wide", f"partition_stage1_wide_{suffix}",
-        _WIDE_ARGS, dw.device, args + [p, bsz, m], stream,
+        _WIDE_ARGS, d.device, args + [p, bsz, n, rows, m, int(zero_ends)], stream,
     )
     return PartitionCoeffs(y, v, w, *reds)
+
+
+def wide_tile_blocks(m: int) -> int:
+    """Partition blocks per tile of the wide kernel at this m, its halo
+    included (0 where blocks are walked from device memory)."""
+    return int(build.entry("partition_stage1_wide", "partition_stage1_wide_tile_blocks", (_I,))(m))
 
 
 def partition_stage1_cuda_wide(

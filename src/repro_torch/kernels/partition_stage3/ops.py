@@ -11,8 +11,12 @@ plain version is the reference stage,
 
 :func:`partition_stage3_cuda_wide` replaces ``_stage3_kernel_wide`` and the
 ``s_left`` shift of ``_stage3_impl_wide`` on the interleaved layout. Its
-kernel is ``csrc/partition_stage3_wide.cu``, one thread per output element
-with the systems fastest, and its plain version
+kernel is ``csrc/partition_stage3_wide.cu``: 16-byte groups of lanes where
+alignment allows, s_p and s_{p-1} read once per (block, lane), and one
+thread per (block, lane group) looping over the block's rows, or up to 16
+sharing them where the launch has few such columns (the reduced solve's
+levels); no index is divided, and each element keeps the bits of one
+thread per element. Its plain version is
 :func:`repro_torch.core.tridiag.layout.partition_stage3_wide`.
 
 :func:`run_stage3` and :func:`run_stage3_wide` launch the kernels without

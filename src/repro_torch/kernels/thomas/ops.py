@@ -19,6 +19,12 @@ solves the last level of at most N0 rows. The answer agrees with Thomas's to
 rounding; it is not the same sequence of operations. Each call, all levels
 included, adds one to its route's launch counter and nothing to the Stage 1
 or Stage 3 counters.
+
+Neither route copies the caller's rows when r divides n: both Stage 1
+kernels read each system's dl[0] and du[n-1] as zero. The wide Stage 1 also
+takes a row count, reading the rows past n as identity rows without loading
+them, so the wide route never copies them: at one level (n ≤ R·N0) a call is
+three launches, Stage 1, the base and Stage 3.
 """
 
 from __future__ import annotations
@@ -63,38 +69,34 @@ def level_sizes(n: int, r: int = R, n0: int = N0) -> List[int]:
     return sizes
 
 
-def _level0(ops: Sequence[Tensor], rows: int, axis: int) -> List[Tensor]:
-    """The caller's operands copied into ``rows`` rows along ``axis``: the
+def _level0(ops: Sequence[Tensor], rows: int) -> List[Tensor]:
+    """The caller's (B, n) operands copied into ``rows`` rows a system: the
     rows past n are identity rows (d = 1, the rest 0), and dl[0] and du[n-1],
     which Thomas ignores but the partition couples through, are zero. The
     caller's tensors are never written."""
     dl, d, du, b = ops
-    n = d.shape[axis]
-    shape = list(d.shape)
-    shape[axis] = rows
-    buf = d.new_zeros([4] + shape)
-    buf[0].narrow(axis, 1, n - 1).copy_(dl.narrow(axis, 1, n - 1))
-    buf[1].narrow(axis, 0, n).copy_(d)
-    buf[2].narrow(axis, 0, n - 1).copy_(du.narrow(axis, 0, n - 1))
-    buf[3].narrow(axis, 0, n).copy_(b)
+    bsz, n = d.shape
+    buf = d.new_zeros((4, bsz, rows))
+    buf[0, :, 1:n].copy_(dl[:, 1:])
+    buf[1, :, :n].copy_(d)
+    buf[2, :, : n - 1].copy_(du[:, : n - 1])
+    buf[3, :, :n].copy_(b)
     if rows > n:
-        buf[1].narrow(axis, n, rows - n).fill_(1.0)
+        buf[1, :, n:] = 1.0
     return list(buf)
 
 
-def _pad_rows(red: Sequence[Tensor], rows: int, axis: int) -> List[Tensor]:
-    """A level's reduced rows as the next level's operands of ``rows`` rows.
-    Rows that a stage wrote already padded are taken as they are; shorter
-    ones are copied above identity rows."""
-    p = red[1].shape[axis]
+def _pad_rows(red: Sequence[Tensor], rows: int) -> List[Tensor]:
+    """A level's (B, P) reduced rows as the next level's operands of
+    ``rows`` rows a system. Rows that a stage wrote already padded are
+    taken as they are; shorter ones are copied above identity rows."""
+    bsz, p = red[1].shape
     if p == rows:
         return list(red)
-    shape = list(red[1].shape)
-    shape[axis] = rows
-    buf = red[1].new_zeros([4] + shape)
+    buf = red[1].new_zeros((4, bsz, rows))
     for dst, src in zip(buf, red):
-        dst.narrow(axis, 0, p).copy_(src)
-    buf[1].narrow(axis, p, rows - p).fill_(1.0)
+        dst[:, :p].copy_(src)
+    buf[1, :, p:] = 1.0
     return list(buf)
 
 
@@ -115,30 +117,47 @@ def solve_levels(
     """Solve B tridiagonal systems by the partition method applied to itself.
 
     Operands are (B, n) rows, or (n, B) rows with ``wide``. While a level
-    has more than ``n0`` rows, its rows (padded to a multiple of ``r`` with
-    identity rows) go through ``stage1(dl, d, du, b, m=r)`` — system-major
-    Stage 1 on (B, N) operands, or wide Stage 1 on (N/r, r, B) — whose
-    reduced rows (P per system, or already padded for the next level) are
-    the next level; ``base(dl, d, du, b)`` solves the last level, and
-    ``stage3(coeffs, s)`` — (B, N), or (N/r, r, B) — climbs back. Only the
-    first level copies the caller's operands: always, or with
-    ``ends_ignored`` (``stage1`` reads each system's dl[0] and du[n-1] as
-    zero, as Thomas ignores them) only when n needs padding. The systems
-    must not need pivoting, as in Stage 1: a strictly diagonally dominant
-    system has a strictly diagonally dominant reduced system.
+    has more than ``n0`` rows it goes through Stage 1 with m = ``r``, whose
+    reduced rows are the next level; ``base(dl, d, du, b)`` solves the last
+    level, and ``stage3(coeffs, s)`` — (B, N), or (N/r, r, B) — climbs
+    back.
+
+    - System-major: ``stage1(dl, d, du, b, m=r)`` on (B, N) operands, N a
+      multiple of r, whose reduced rows (P per system, or already padded)
+      are padded with identity rows for the next level. Only the first
+      level copies the caller's operands: always, or with ``ends_ignored``
+      (``stage1`` reads each system's dl[0] and du[n-1] as zero, as Thomas
+      ignores them) only when n needs padding.
+    - Wide: ``stage1(dl, d, du, b, m=r, zero_ends=True)`` on (n, B) rows of
+      any n: ⌈n/r⌉ blocks, the rows past n identity rows, dl[0] and du[n-1]
+      read as zero. The caller's rows go in as they are, and each level's
+      reduced rows (P, or more already padded with identity rows) are the
+      next level's rows: no level copies.
+
+    The systems must not need pivoting, as in Stage 1: a strictly
+    diagonally dominant system has a strictly diagonally dominant reduced
+    system.
     """
     axis = 0 if wide else 1
     n = d.shape[axis]
     if n <= n0:
         return base(dl, d, du, b)
-    rows = common.round_up(n, r)
-    ops = [dl, d, du, b] if ends_ignored and rows == n else _level0((dl, d, du, b), rows, axis)
+    if wide:
+        ops = [dl, d, du, b]
+    else:
+        rows = common.round_up(n, r)
+        ops = [dl, d, du, b] if ends_ignored and rows == n else _level0((dl, d, du, b), rows)
     levels: List[Tuple[Any, int]] = []
     while n > n0:
-        p = ops[1].shape[axis] // r
-        coeffs = stage1(*(a.reshape(p, r, -1) if wide else a for a in ops), m=r)
+        if wide:
+            p = common.cdiv(n, r)
+            coeffs = stage1(*ops, m=r, zero_ends=True)
+            ops = list(coeffs[3:])
+        else:
+            p = ops[1].shape[1] // r
+            coeffs = stage1(*ops, m=r)
+            ops = _pad_rows(coeffs[3:], padded_rows(p, r, n0))
         levels.append((coeffs, n))
-        ops = _pad_rows(coeffs[3:], padded_rows(p, r, n0), axis)
         n = p
     x = base(*ops)
     for coeffs, rows in reversed(levels):
@@ -182,9 +201,11 @@ def thomas_levels_cuda(
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         if wide:
-            def stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *, m: int) -> Any:
-                return run_stage1_wide(dl, d, du, b, m, red_rows=padded_rows(d.shape[0], r, n0),
-                                       stream=stream)
+            def stage1(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *, m: int,
+                       zero_ends: bool) -> Any:
+                return run_stage1_wide(dl, d, du, b, m,
+                                       red_rows=padded_rows(common.cdiv(d.shape[0], m), r, n0),
+                                       zero_ends=zero_ends, stream=stream)
 
             def stage3(c: Any, s: Tensor) -> Tensor:
                 return run_stage3_wide(c.y, c.v, c.w, s, stream=stream)
@@ -202,7 +223,7 @@ def thomas_levels_cuda(
             return _launch_base(dl, d, du, b, wide, stream)
 
         return solve_levels(dl, d, du, b, stage1=stage1, stage3=stage3, base=base, wide=wide,
-                            r=r, n0=n0, ends_ignored=not wide)
+                            r=r, n0=n0, ends_ignored=True)
 
 
 def _check(dl: Tensor, d: Tensor, du: Tensor, b: Tensor, n: int) -> None:
