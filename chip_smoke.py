@@ -60,7 +60,20 @@ Phases:
    for bit, and ``solve_batched_timed`` on the staged interleaved branch.
    Every result is checked against ``x_true``, and the n = 1e7 solve's
    residual max|A x - b| is taken with the matvec kernel; every solver
-   kernel's launch counter must rise.
+   kernel's launch counter must rise. The fused path caches a CUDA graph
+   per signature: each fused verb runs three times, a cache miss (eager),
+   the hit that captures and a replay, which must give the same bits and
+   raise each launch counter by exactly one set (the replay's through the
+   capture's tally alone); for one verb of each layout the profiler's
+   device kernels of a replay must be an eager call's; the 1 and 8 chunk
+   answers are compared as replays; the reference backend is cached but
+   never captured; the served batches report the cache's hit share. Then
+   the functional ``solve_batched`` and ``thomas_batched`` at 64 x 100,000
+   (one launch a stage); a hammer: two threads' sessions over an
+   executable cache of capacity 2 beside a third thread on the staged path
+   (answers, bounded joins, one set of launches a call); and 110 distinct
+   n ~ 1e7 graphs, more than the card holds, which the cache's byte budget
+   must evict (answers on x_true).
 4. ``breakdown``: where the time of one n = 1e7 fp64 solve and of one
    interleaved ``solve_batched`` of 1024 x 10,000 fp64 goes, stage by
    stage, from CUDA events and the host clock around the copies, how long
@@ -68,6 +81,10 @@ Phases:
    and, from ``torch.profiler``, each one's device busy time, idle share
    and largest device entries (the wide reduced solve's too, which must be
    three kernels at P = 1,000, B = 1024: Stage 1, the base, Stage 3).
+   Both fused paths are also timed as CUDA graph replays beside their
+   eager calls (events in turn, enqueue, device time, profiler), with the
+   device memory one cache entry holds (and is charged), which
+   ``clear_executable_cache`` must give back.
 5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
@@ -112,14 +129,20 @@ TF32_TC_FLOPS = 495e12
 # doubled, at most SLEEP_DOUBLINGS times, when the host is slower.
 SLEEP_CYCLES = 60_000_000
 SLEEP_DOUBLINGS = 4
-# Traces taken of one call before an empty one (no device entries) fails.
-PROFILE_ATTEMPTS = 3
+# Traces taken of a call before an empty or incomplete one fails.
+PROFILE_ATTEMPTS = 5
+# Device entries launched at the start of a profiler window to take the
+# trace's loss of its first entries; doubled at each attempt after an
+# incomplete trace.
+PROFILE_PAD = 64
 M = 10
 ALL_PHASES = ("build", "kernels", "main", "breakdown", "lm")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
 LM_KERNELS = ("ssd_stage1",)
+# The main path's launches replayed from CUDA graphs, by kernel (main_phase).
+REPLAYED: Dict[str, int] = {}
 LM_ARCH = "mamba2-1.3b"
 # 48 ragged systems of 60,000 ... 100,000 rows: padded to P_max = 10,000
 # blocks they fill 80.0 % of the wide grid, so "auto" interleaves them.
@@ -275,41 +298,64 @@ def queued_ms(fns: List[Callable[[], Any]], reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3,
-                   top: int = 5) -> List[Tuple[float, int, str]]:
-    """``fn`` under ``torch.profiler``: the device's busy time a call (the
-    sum of its kernels' and copies' device times; one stream, so they do
-    not overlap), its idle share against ``ms`` (the call's CUDA-event time,
-    taken without the profiler), and the largest device entries with their
-    count a call. One call warms the profiler up before the ``reps`` it
-    records, each of which ends on a synchronisation. A trace with no device
-    entries at all (the device tracer did not attach) is taken again, at
-    most ``PROFILE_ATTEMPTS`` times in all. Returns the device entries,
-    (ms a call, count a call, name), largest first."""
+def traced(label: str, fn: Callable[[], Any], reps: int) -> List[Tuple[float, int, str]]:
+    """``fn`` under ``torch.profiler``: one call outside the trace warms
+    it up; inside it, a pad of ``torch.cuda._sleep(0)`` launches (device
+    entries named ``spin_kernel``, which no path launches) runs first, then
+    ``reps`` calls, each ending on a synchronisation. On this card's hosts
+    a trace loses its first few device entries (1 to 8 in the traces read;
+    unpadded, the first call of a small ``fn``, or the first Stage 1
+    launches of a large one): the pad takes that loss, and a trace in which
+    at least one pad entry survived holds every call in full. Returns the device
+    entries of the calls, (µs in all, count in all, name). A trace with no
+    pad entry, no other device entry, or a count of 0 or not a multiple of
+    ``reps`` (every call runs the same kernels) is taken again behind twice
+    the pad; after ``PROFILE_ATTEMPTS`` such traces it fails."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
+    pad = PROFILE_PAD
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
-            for _ in range(1 + reps):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
                 fn()
                 torch.cuda.synchronize()
-                prof.step()
-        entries = []
+        entries, padded = [], 0
         for e in prof.key_averages():
-            # Host-side ops also carry their kernels' time, and the step
-            # marks span the calls: only the device's own entries count.
-            if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            # Host-side ops also carry their kernels' time: only the
+            # device's own entries count.
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.key:
+                padded += e.count
                 continue
             us = getattr(e, "self_device_time_total", None)
             us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
-            entries.append((us / reps / 1e3, e.count // reps, e.key))
-        if entries:
-            break
-        log(f"    profiler, {label}: no device activity recorded in attempt {attempt} of "
-            f"{PROFILE_ATTEMPTS}")
-    assert entries, f"{label}: the profiler recorded no device activity in {PROFILE_ATTEMPTS} attempts"
+            entries.append((us, e.count, e.key))
+        if padded and entries and all(c > 0 and c % reps == 0 for _, c, _ in entries):
+            if padded < pad:
+                log(f"    profiler, {label}: the trace lost {pad - padded} of its {pad} pad entries")
+            return entries
+        log(f"    profiler, {label}: an incomplete trace ({padded} of {pad} pad entries) in attempt "
+            f"{attempt} of {PROFILE_ATTEMPTS}: {[(c, k[:40]) for _, c, k in entries]}")
+        pad *= 2
+    raise AssertionError(f"{label}: the profiler recorded no complete trace in {PROFILE_ATTEMPTS} attempts")
+
+
+def device_profile(label: str, fn: Callable[[], Any], ms: float, reps: int = 3,
+                   top: int = 5) -> List[Tuple[float, int, str]]:
+    """The device's busy time a call of ``fn`` from its trace (``traced``;
+    the sum of its kernels' and copies' device times; one stream, so they
+    do not overlap), its idle share against ``ms`` (the call's CUDA-event
+    time, taken without the profiler), and the largest device entries with
+    their count a call. Returns the device entries, (ms a call, count a
+    call, name), largest first."""
+    entries = [(us / reps / 1e3, c // reps, k) for us, c, k in traced(label, fn, reps)]
     entries.sort(reverse=True)
     busy = sum(t for t, _, _ in entries)
     log(f"    profiler, {label}: device busy {busy:.4f} ms a call against {ms:.4f} ms "
@@ -1064,9 +1110,18 @@ def ssd_edges(dev: torch.device) -> None:
 
 # --------------------------------------------------------------------- main --
 def main_phase(dev: torch.device) -> Dict[str, int]:
-    from repro_torch.api import HeuristicChunkPolicy, SolveRequest, SolverConfig, TridiagSession
+    from repro_torch.api import (
+        HeuristicChunkPolicy,
+        SolveRequest,
+        SolverConfig,
+        TridiagSession,
+        clear_executable_cache,
+        executable_cache_stats,
+        set_executable_cache_capacity,
+    )
     from repro_torch.core.autotune import fit_stream_heuristic
     from repro_torch.core.streams import StreamSimulator
+    from repro_torch.core.tridiag import plan as plan_mod
     from repro_torch.kernels import LAUNCH_COUNTERS, tridiag_matvec_cuda
     from repro_torch.kernels.common import assert_allclose_by_dtype
 
@@ -1092,10 +1147,13 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
             lat.append((time.perf_counter() - t0) * 1e3)
         return out, statistics.median(lat)
 
+    clear_executable_cache()
     for c in LAUNCH_COUNTERS.values():
         c.reset()
     with TridiagSession(cfg) as session:
         assert session.backend.name == "cuda", session.backend
+        k = session.plan_for(big[4].size).num_chunks
+        thrice("solve n=1e7 fp64", lambda: session.solve(*big[:4]), one_set(k))
         x, ms = timed(lambda: session.solve(*big[:4]))
         assert x.shape == big[4].shape and np.isfinite(x).all()
         assert_allclose_by_dtype(x, big[4], np.float64)
@@ -1108,6 +1166,8 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
             f"latency_ms={ms:.3f} max_err_vs_x_true={max_err(x, big[4]):.3e} "
             f"residual_max_abs={res:.3e}")
 
+        k = session.plan_for(mid32[4].size).num_chunks
+        thrice("solve n=1e6 fp32", lambda: session.solve(*mid32[:4]), one_set(k), profile=True)
         x, ms = timed(lambda: session.solve(*mid32[:4]))
         assert x.dtype == np.float32 and np.isfinite(x).all()
         assert_allclose_by_dtype(x, mid32[4], np.float32)
@@ -1116,15 +1176,17 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
 
         # The stacked (K, n) solve runs the batched Stage-1/Stage-3 kernels
         # once per chunk and the reduced solve as 64 systems in one launch.
-        x, rose = launches_of(lambda: session.solve(*batched[:4]))
         k = session.plan_for(100_000).num_chunks
-        assert rose == {"partition_stage1": k, "thomas": 1, "partition_stage3": k}, (rose, k)
+        rose = one_set(k)
+        x = thrice("solve stacked (64, 100000) fp64", lambda: session.solve(*batched[:4]), rose)
         assert x.shape == (64, 100_000) and np.isfinite(x).all()
         assert_allclose_by_dtype(x, batched[4], np.float64)
         _, ms = timed(lambda: session.solve(*batched[:4]))
         log(f"  solve stacked (64, 100000) fp64: chunks={k} launches={rose} "
             f"latency_ms={ms:.3f} max_err_vs_x_true={max_err(x, batched[4]):.3e}")
 
+        k = session.plan_for((100_000,) * 64).num_chunks
+        thrice("solve_batched 64x100000 fp64", lambda: session.solve_batched(*batched[:4]), one_set(k))
         x, ms = timed(lambda: session.solve_batched(*batched[:4]))
         assert x.shape == (64, 100_000) and np.isfinite(x).all()
         assert_allclose_by_dtype(x, batched[4], np.float64)
@@ -1132,6 +1194,9 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
             f"{session.plan_for((100_000,) * 64).num_chunks} latency_ms={ms:.3f} "
             f"max_err_vs_x_true={max_err(x, batched[4]):.3e}")
 
+        k = session.plan_for(ragged_sizes).num_chunks
+        thrice(f"solve_many {ragged_sizes}", lambda: session.solve_many([s[:4] for s in ragged]),
+              one_set(k))
         xs, ms = timed(lambda: session.solve_many([s[:4] for s in ragged]))
         for xi, s in zip(xs, ragged):
             assert_allclose_by_dtype(xi, s[4], np.float64)
@@ -1140,6 +1205,7 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
             f"{max(max_err(xi, s[4]) for xi, s in zip(xs, ragged)):.3e}")
 
     with TridiagSession(cfg.replace(max_batch=16, max_wait_ms=50.0)) as serving:
+        s0 = executable_cache_stats()
         t0 = time.perf_counter()
         futs = [serving.submit(SolveRequest(i, *s[:4])) for i, s in enumerate(served)]
         outs = [f.result(timeout=300) for f in futs]
@@ -1148,54 +1214,159 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
             assert_allclose_by_dtype(xi, s[4], np.float64)
         batches = serving.stats["per_batch"]
         log(f"  submit x16: batches={len(batches)} chunks={[b['num_chunks'] for b in batches]} "
-            f"latency_ms={ms:.3f} max_err_vs_x_true="
+            f"{hit_share(s0)} latency_ms={ms:.3f} max_err_vs_x_true="
             f"{max(max_err(xi, s[4]) for xi, s in zip(outs, served)):.3e}")
 
     # The chunk count must not change the answer, for one system and for
-    # the stacked batch (whose chunks run the batched kernels with halos).
+    # the stacked batch (whose chunks run the batched kernels with halos):
+    # the replays at 1 and 8 (the policy's own count may be one of them,
+    # which would make the first call a hit: the cache starts empty here).
+    clear_executable_cache()
     for label, ops in (("n=1e7", big), ("stacked (64, 100000)", batched)):
         sols = {}
         for k in (1, 8):
             with TridiagSession(cfg.replace(policy=None, num_chunks=k)) as sk:
-                sols[k] = sk.solve(*ops[:4])
+                sols[k] = thrice(f"solve {label} chunks={k}", lambda: sk.solve(*ops[:4]), None)
         assert np.array_equal(sols[1], sols[8]), f"solve {label}: 1 and 8 chunks differ"
-        log(f"  solve {label} chunks=1 vs chunks=8: bit_identical=True")
+        log(f"  solve {label} chunks=1 vs chunks=8, replayed: bit_identical=True")
 
-    # The plain comparison: the same verbs on the card with backend="reference".
+    # The plain comparison: the same verb on the card with backend="reference",
+    # at the default capacity. The plain stages are not captured (their
+    # reduced solve is a Python loop of small launches): its entry is cached
+    # and hit like any other but holds no graph and no device memory.
     small = system(100_000, 4, np.float64)
+    clear_executable_cache()
     with TridiagSession(cfg) as kern, TridiagSession(cfg.replace(backend="reference")) as plain:
-        assert plain.backend.name == "reference"
+        assert plain.backend.name == "reference" and not plain.backend.capturable
         a = kern.solve(*small[:4])
-        b = plain.solve(*small[:4])
-        assert_allclose_by_dtype(a, b, np.float64)
-        log(f"  cuda vs reference backend on the card, n=1e5 fp64: max_abs_diff={max_err(a, b):.3e}")
+        b, b_hit = plain.solve(*small[:4]), plain.solve(*small[:4])
+    entries = {e.backend.name: e for e in plan_mod._EXEC_CACHE.values()}
+    assert set(entries) == {"cuda", "reference"}, entries
+    ref = entries["reference"]
+    assert not ref.capturable and ref.graph is None and ref.nbytes == 0
+    assert executable_cache_stats()["hits"] == 1 and np.array_equal(b, b_hit)
+    assert_allclose_by_dtype(a, b, np.float64)
+    log(f"  cuda vs reference backend on the card, n=1e5 fp64: max_abs_diff={max_err(a, b):.3e}; "
+        f"the reference entry, hit once, holds no graph")
 
     interleaved_phase(cfg.replace(layout="auto"), timed, batched)
     staged_phase(cfg.replace(layout="auto"), big)
+    functional_phase(batched)
+    hammer_phase(cfg)
+    budget_phase(dev)
+    log(f"  executable cache after the main path: {executable_cache_stats()}")
+    clear_executable_cache()
 
     launches = {name: LAUNCH_COUNTERS[name].count for name in MAIN_KERNELS}
-    log(f"  launch counts on the main path: {launches}")
+    replayed = {name: LAUNCH_COUNTERS[name].replayed for name in MAIN_KERNELS}
+    log(f"  launch counts on the main path (by the wrappers): {launches}; "
+        f"launches replayed from CUDA graphs beside them: {replayed}")
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was never launched on the main path"
+    REPLAYED.update(replayed)
     return launches
+
+
+def hit_share(s0: Dict[str, int]) -> str:
+    """The executable cache's hits and misses since ``s0``, and the hit share."""
+    from repro_torch.api import executable_cache_stats
+
+    s1 = executable_cache_stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    return f"cache hits={hits} misses={misses} hit_share={hits / max(1, hits + misses):.3f}"
 
 
 def launches_of(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
     """``fn()`` and how many times each kernel launched during it."""
-    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.common import launch_counts, launches_since
 
-    before = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    before = launch_counts()
     out = fn()
-    return out, {name: c.count - before[name] for name, c in LAUNCH_COUNTERS.items() if c.count > before[name]}
+    return out, launches_since(before)
 
 
 WIDE_ONCE = {"partition_stage1_wide": 1, "thomas_wide": 1, "partition_stage3_wide": 1}
 
 
+def one_set(k: int) -> Dict[str, int]:
+    """The launches of one system-major fused call of k chunks."""
+    return {"partition_stage1": k, "thomas": 1, "partition_stage3": k}
+
+
+def same_bits(a: Any, b: Any) -> bool:
+    if isinstance(a, list):
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(a, b))
+
+
+def rises_of(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int], Dict[str, int]]:
+    """``fn()``, how many launches of each kernel it made in all (by its
+    wrappers and by graph replays), and how many of those were replayed."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    before = {name: c.replayed for name, c in LAUNCH_COUNTERS.items()}
+    out, rose = launches_of(fn)
+    replayed = {name: c.replayed - before[name] for name, c in LAUNCH_COUNTERS.items()
+                if c.replayed != before[name]}
+    return out, rose, replayed
+
+
+def thrice(label: str, fn: Callable[[], Any], want: Optional[Dict[str, int]],
+           profile: bool = False) -> Any:
+    """``fn()`` (one fused dispatch) three times: the first call must miss
+    the executable cache (it runs eagerly), the second hit it (it runs
+    eagerly on the entry's static operands, then captures the CUDA graph),
+    the third hit it again (a replay). Every answer must equal the first
+    bit for bit; each call must raise the launch counts by exactly ``want``
+    (one set), where given, the first two through the wrappers and the
+    replay through the capture's tally alone. With ``profile``, the device
+    kernels of a replay, from ``torch.profiler``, must be those of an
+    eager call of ``fn`` (at capacity 0), name for name and count for count.
+    Returns the replay's answer."""
+    from repro_torch.api import executable_cache_stats, set_executable_cache_capacity
+
+    if profile:  # first, so that the calls after thrice() find the entry
+        set_executable_cache_capacity(0)
+        try:
+            eager_kernels = kernel_counts(f"{label} eager", fn)
+        finally:
+            set_executable_cache_capacity(128)
+    stats = [executable_cache_stats()]
+    calls = []
+    for _ in range(3):
+        calls.append(rises_of(fn))
+        stats.append(executable_cache_stats())
+    for i, (misses, hits) in enumerate(((1, 0), (0, 1), (0, 1))):
+        got = (stats[i + 1]["misses"] - stats[i]["misses"], stats[i + 1]["hits"] - stats[i]["hits"])
+        assert got == (misses, hits), (label, i, stats[i], stats[i + 1])
+    (eager, rose_miss, rep_miss), (captured, rose_cap, rep_cap), (replay, rose_hit, rep_hit) = calls
+    assert not rep_miss and not rep_cap and rep_hit == rose_hit, (label, rep_miss, rep_cap, rep_hit)
+    if want is not None:
+        for name, rose in (("miss", rose_miss), ("capture", rose_cap), ("replay", rose_hit)):
+            assert rose == want, (label, name, rose, want)
+    assert same_bits(eager, captured) and same_bits(eager, replay), f"{label}: the answers differ"
+    log(f"  {label}: miss, capture, replay: launches {rose_miss}, {rose_cap} and {rose_hit} "
+        f"(replayed {rep_hit}), bit_identical=True")
+    if profile:
+        graph_kernels = kernel_counts(f"{label} replay", fn)
+        assert graph_kernels and graph_kernels == eager_kernels, (label, graph_kernels, eager_kernels)
+        log(f"    profiler, {label}: a replay runs the eager call's {sum(graph_kernels.values())} "
+            f"device kernels ({len(graph_kernels)} kinds): "
+            + "; ".join(f"{k[:50]} x{c}" for k, c in sorted(graph_kernels.items())))
+    return replay
+
+
+def kernel_counts(label: str, fn: Callable[[], Any], reps: int = 2) -> Dict[str, int]:
+    """The device kernels of one call of ``fn`` by name, from its trace
+    (``traced``; copies and fills left out)."""
+    return {k: c // reps for _, c, k in traced(label, fn, reps) if not k.startswith(("Memcpy", "Memset"))}
+
+
 def interleaved_phase(cfg: Any, timed: Callable[..., Tuple[Any, float]],
                       batched: Tuple[np.ndarray, ...]) -> None:
     """The verbs that ``layout="auto"`` interleaves, at the paper's sizes."""
-    from repro_torch.api import SolveRequest, TridiagSession
+    from repro_torch.api import SolveRequest, TridiagSession, executable_cache_stats
+    from repro_torch.core.tridiag import layout
     from repro_torch.kernels.common import assert_allclose_by_dtype
 
     b32 = system(100_000, 5, np.float32, batch=(64,))
@@ -1211,8 +1382,9 @@ def interleaved_phase(cfg: Any, timed: Callable[..., Tuple[Any, float]],
             bsz, n = ops[1].shape
             plan = session.plan_for((n,) * bsz)
             assert session._fused.resolved_layout(plan) == "interleaved", label
-            x, rose = launches_of(lambda: session.solve_batched(*ops[:4]))
-            assert rose == WIDE_ONCE, (label, rose)
+            rose = WIDE_ONCE
+            x = thrice(f"solve_batched {label} layout=interleaved",
+                       lambda: session.solve_batched(*ops[:4]), rose, profile=label == "64x100000 fp64")
             assert x.shape == (bsz, n) and x.dtype == np_dtype and np.isfinite(x).all()
             assert_allclose_by_dtype(x, ops[4], np_dtype)
             _, ms = timed(lambda: session.solve_batched(*ops[:4]))
@@ -1221,8 +1393,17 @@ def interleaved_phase(cfg: Any, timed: Callable[..., Tuple[Any, float]],
 
         plan = session.plan_for(RAGGED_48)
         assert session._fused.resolved_layout(plan) == "interleaved"
-        xs, rose = launches_of(lambda: session.solve_many([s[:4] for s in many]))
-        assert rose == WIDE_ONCE, rose
+        xs = thrice("solve_many 48 ragged layout=interleaved",
+                    lambda: session.solve_many([s[:4] for s in many]), WIDE_ONCE)
+        # The graph reads the gather maps by address: with the layout's LRU
+        # emptied and the allocator's free blocks given back, a replay must
+        # still give the same bits, because the entry holds the maps.
+        layout._device_maps.cache_clear()
+        torch.cuda.empty_cache()
+        xs_again, rose, replayed = rises_of(lambda: session.solve_many([s[:4] for s in many]))
+        assert same_bits(xs, xs_again) and rose == replayed == WIDE_ONCE, (rose, replayed)
+        log("  solve_many 48 ragged layout=interleaved: replayed after the gather maps' LRU "
+            "was emptied, bit_identical=True")
         for xi, s in zip(xs, many):
             assert np.isfinite(xi).all()
             assert_allclose_by_dtype(xi, s[4], np.float64)
@@ -1239,6 +1420,7 @@ def interleaved_phase(cfg: Any, timed: Callable[..., Tuple[Any, float]],
 
     # 64 served requests of 10,000 ... 20,000 rows, taken as one ragged batch.
     with TridiagSession(cfg.replace(max_batch=64, max_wait_ms=5000.0)) as serving:
+        s0 = executable_cache_stats()
         t0 = time.perf_counter()
         futs = [serving.submit(SolveRequest(i, *s[:4])) for i, s in enumerate(served)]
         outs = [f.result(timeout=300) for f in futs]
@@ -1249,7 +1431,7 @@ def interleaved_phase(cfg: Any, timed: Callable[..., Tuple[Any, float]],
         batches = serving.stats["per_batch"]
         assert [(b["systems"], b["layout"]) for b in batches] == [(64, "interleaved")], batches
         log(f"  submit x64 10000..20000: batches={len(batches)} layout={batches[0]['layout']} "
-            f"latency_ms={ms:.3f} max_err_vs_x_true="
+            f"{hit_share(s0)} latency_ms={ms:.3f} max_err_vs_x_true="
             f"{max(max_err(xi, s[4]) for xi, s in zip(outs, served)):.3e}")
 
 
@@ -1289,13 +1471,152 @@ def staged_phase(cfg: Any, big: Tuple[np.ndarray, ...]) -> None:
                 f"max_err_vs_x_true={max_err(x, batched[4]):.3e}")
 
 
+def functional_phase(batched: Tuple[np.ndarray, ...]) -> None:
+    """The functional batched solvers on the card: one launch of each stage."""
+    from repro_torch.core.tridiag.batched import solve_batched, thomas_batched
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+
+    for label, fn, want in (
+        ("solve_batched", lambda ops: solve_batched(*ops, m=M),
+         {"partition_stage1": 1, "thomas": 1, "partition_stage3": 1}),
+        ("thomas_batched", lambda ops: thomas_batched(*ops), {"thomas": 1}),
+    ):
+        x, rose = launches_of(lambda: fn(batched[:4]))
+        assert rose == want, (label, rose)
+        assert x.device.type == "cuda" and x.shape == (64, 100_000) and x.dtype == torch.float64
+        assert bool(torch.isfinite(x).all())
+        assert_allclose_by_dtype(x, batched[4], np.float64)
+        ops = [torch.as_tensor(a, device="cuda") for a in batched[:4]]
+        ms = cuda_ms(lambda: fn(ops), reps=5)
+        log(f"  {label} 64x100000 fp64 (functional): launches={rose} device_operands_ms={ms:.4f} "
+            f"max_err_vs_x_true={max_err(x, batched[4]):.3e}")
+
+
+def hammer_phase(cfg: Any) -> None:
+    """Two threads, a session each, one executable LRU of capacity 2 on the
+    card: thread 0 solves n = 100,000 and 200,000, thread 1 200,000 and
+    300,000, ten rounds each, so an entry is shared by both threads, and
+    entries are evicted and captured again while the other thread replays.
+    A third thread runs the staged path meanwhile (``solve_timed``, one
+    pooled CUDA stream a chunk), which must not reach into a capture.
+    Every answer is checked against x_true, every join is bounded, and the
+    launch counters must rise by exactly one set a call."""
+    import threading
+
+    from repro_torch.api import (
+        TridiagSession,
+        clear_executable_cache,
+        executable_cache_stats,
+        set_executable_cache_capacity,
+    )
+    from repro_torch.kernels.common import assert_allclose_by_dtype, launch_counts, launches_since
+
+    k, staged_k, rounds = 4, 8, 10
+    sizes = ((100_000, 200_000), (200_000, 300_000))
+    problems = {n: system(n, 500 + n // 100_000, np.float64) for n in (100_000, 200_000, 300_000)}
+    errors: List[Any] = []
+
+    def worker(tid: int) -> None:
+        try:
+            if tid == 2:
+                with TridiagSession(cfg.replace(policy=None, num_chunks=staged_k)) as session:
+                    for _ in range(rounds):
+                        x, _ = session.solve_timed(*problems[200_000][:4])
+                        assert_allclose_by_dtype(x, problems[200_000][4], np.float64)
+                return
+            with TridiagSession(cfg.replace(policy=None, num_chunks=k)) as session:
+                for _ in range(rounds):
+                    for n in sizes[tid]:
+                        x = session.solve(*problems[n][:4])
+                        assert_allclose_by_dtype(x, problems[n][4], np.float64)
+        except Exception as e:  # reported below, on the main thread
+            errors.append((tid, repr(e)))
+
+    clear_executable_cache()
+    set_executable_cache_capacity(2)
+    try:
+        before = launch_counts()
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive(), "hammer thread did not finish"
+        rose = launches_since(before)
+        stats = executable_cache_stats()
+    finally:
+        set_executable_cache_capacity(128)
+        clear_executable_cache()
+    assert not errors, errors
+    calls, staged = 2 * rounds * 2, rounds * staged_k
+    assert stats["hits"] + stats["misses"] == calls and stats["size"] <= 2, stats
+    assert rose == {"partition_stage1": calls * k + staged, "thomas": calls,
+                    "partition_stage3": calls * k + staged}, rose
+    log(f"  hammer, 2 threads x {rounds * 2} fused solves at capacity 2 beside {rounds} staged "
+        f"solve_timed: answers on x_true, cache {stats}, launches {rose} (one set a call)")
+
+
+def budget_phase(dev: torch.device, signatures: int = 110, n_max: int = 10_000_000) -> None:
+    """More CUDA graphs than the card could hold, under the default cache
+    capacity: ``signatures`` n ~ 1e7 fp64 systems of distinct row counts
+    (so distinct plans), each solved twice on the device (a miss, then the
+    hit that captures), about 0.8 GB an entry. The graphs captured hold
+    more bytes in all than the card has; the byte budget must keep what the
+    cache holds within its share (evicting), and every answer must be on
+    x_true."""
+    from repro_torch.api import FusedExecutor, clear_executable_cache, executable_cache_stats
+    from repro_torch.core.tridiag import plan as plan_mod
+
+    ex = FusedExecutor("cuda", device=dev, layout="system-major")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_true = torch.randn(n_max, generator=gen, device=dev, dtype=torch.float64)
+    dl, du = (torch.rand(n_max, generator=gen, device=dev, dtype=torch.float64) - 0.5 for _ in range(2))
+    d = 4.0 + torch.rand(n_max, generator=gen, device=dev, dtype=torch.float64)
+    x_host = x_true.cpu().numpy()
+    budget = plan_mod._byte_budget(dev)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    clear_executable_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    captured, worst, peak_bytes = 0, 0.0, 0
+    t0 = time.perf_counter()
+    for i in range(signatures):
+        n = n_max - M * i
+        b = d[:n] * x_true[:n]
+        b[1:] += dl[1:n] * x_true[: n - 1]
+        b[:-1] += du[: n - 1] * x_true[1:n]
+        ops = (dl[:n], d[:n], du[:n], b)
+        plan = plan_mod.build_plan(n, M, num_chunks=32)
+        for _ in range(2):
+            x, _ = ex.execute(plan, *ops)
+            worst = max(worst, float(np.abs(x - x_host[:n]).max()))
+        entry = plan_mod._EXEC_CACHE.get(ex._key(plan, [torch.as_tensor(a) for a in ops]))
+        assert entry is not None and entry.graph is not None, i
+        captured += entry.nbytes
+        stats = executable_cache_stats()
+        assert stats["bytes"] <= budget, (i, stats, budget)
+        peak_bytes = max(peak_bytes, stats["bytes"])
+    stats = executable_cache_stats()
+    secs = time.perf_counter() - t0
+    assert captured > card and stats["evictions"] > 0, (captured, card, stats)
+    assert worst <= 1e-12, worst
+    log(f"  byte budget: {signatures} distinct n~1e7 fp64 graphs captured, {captured} B in all "
+        f"against a card of {card} B; the cache held at most {peak_bytes} B (budget {budget} B, "
+        f"{plan_mod._EXEC_CACHE_MEMORY_SHARE} of the card), {stats}; max_memory_reserved "
+        f"{torch.cuda.max_memory_reserved(dev)} B; max_err_vs_x_true={worst:.3e}; {secs:.1f} s")
+    clear_executable_cache()
+
+
 # ---------------------------------------------------------------- breakdown --
 def breakdown_phase(dev: torch.device) -> None:
     from repro_torch.api import HeuristicChunkPolicy
     from repro_torch.core.autotune import fit_stream_heuristic
     from repro_torch.core.streams import StreamSimulator
     from repro_torch.core.tridiag.plan import CudaBackend, _fused, build_plan
-    from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda
+    from repro_torch.kernels.partition_stage1.ops import (
+        partition_stage1_cuda,
+        span_blocks,
+        wide_tile_blocks,
+    )
     from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda
     from repro_torch.kernels.thomas.ops import thomas_cuda
 
@@ -1324,8 +1645,78 @@ def breakdown_phase(dev: torch.device) -> None:
         f"reduced_solve_enqueue_ms={enqueue_ms(lambda: thomas_cuda(*red)):.3f}")
     device_profile("fused path n=1e7", lambda: _fused(plan, CudaBackend(), *ops), fused)
     device_profile("reduced solve B=1, n=1e6", lambda: thomas_cuda(*red), s2)
-    del host, ops, c, red, s, x
+    del c, red, s, x
+    # Stage 1 sets its shared-memory attribute at every launch above 48 KB;
+    # these launches run inside the captures below.
+    smem = {"partition_stage1 m=32 fp64 (the reduced solve's levels)":
+            4 * span_blocks(32, torch.float64) * (32 | 1) * 8,
+            "partition_stage1_wide m=10 fp64": 4 * wide_tile_blocks(M) * M * 128}
+    assert all(nbytes > 48 * 1024 for nbytes in smem.values()), smem
+    log(f"    captured launches that call cudaFuncSetAttribute (dynamic shared memory, B): {smem}")
+    replay_breakdown(dev, "fused path n=1e7", plan, "system-major", ops,
+                     lambda: _fused(plan, CudaBackend(), *ops))
+    del host, ops
     interleaved_breakdown(dev)
+
+
+def replay_breakdown(dev: torch.device, label: str, plan: Any, layout: str, ops: List[torch.Tensor],
+                     eager: Callable[[], Any]) -> None:
+    """The fused path as a CUDA graph replay beside its eager call: CUDA
+    events (in turn), the host's enqueue time, device time behind a sleep
+    and the profiler's busy time. First, the device memory one cache entry
+    holds: ``memory_reserved`` before the miss, after the hit that
+    captures and after ``clear_executable_cache()`` (each after
+    ``empty_cache``, nothing else run between), which must give back at
+    least 95 % of what the capture took; the bytes the entry was charged
+    must be at least 95 % of that too."""
+    from repro_torch.api import FusedExecutor, clear_executable_cache
+    from repro_torch.core.tridiag import plan as plan_mod
+
+    ex = FusedExecutor("cuda", device=dev, layout=layout)
+    clear_executable_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    ex.execute(plan, *ops)  # the miss: eager
+    ex.execute(plan, *ops)  # the first hit: eager on the static operands, then the capture
+    torch.cuda.empty_cache()
+    captured = torch.cuda.memory_reserved(dev)
+    charged = plan_mod._EXEC_CACHE[ex._key(plan, ops)].nbytes
+    clear_executable_cache()
+    torch.cuda.empty_cache()
+    cleared = torch.cuda.memory_reserved(dev)
+    static = 4 * ops[1].numel() * ops[1].element_size()
+    log(f"    {label}, memory_reserved: before capture {before} B, after {captured} B (the "
+        f"entry holds {captured - before} B: static operands {static} B, graph pool and "
+        f"solution {captured - before - static} B; charged to the cache {charged} B), "
+        f"after clear {cleared} B")
+    assert captured - cleared >= 0.95 * (captured - before), (before, captured, cleared)
+    assert charged >= 0.95 * (captured - before), (charged, before, captured)
+
+    ex.execute(plan, *ops)
+    ex.execute(plan, *ops)
+    graph = plan_mod._EXEC_CACHE[ex._key(plan, ops)].graph
+    assert graph is not None
+    eager_ms, replay_ms = alternating_ms([eager, graph.replay], reps=10)
+    eager_dev, replay_dev = device_ms(eager, reps=5), device_ms(graph.replay, reps=5)
+    log(f"  {label} as a replay: events eager_ms={eager_ms:.4f} replay_ms={replay_ms:.4f}; "
+        f"enqueue eager_ms={enqueue_ms(eager):.4f} replay_ms={enqueue_ms(graph.replay):.4f}; "
+        f"device eager_ms={eager_dev:.4f} replay_ms={replay_dev:.4f}")
+    device_profile(f"{label} as a replay", graph.replay, replay_ms)
+    # The same call from host operands, as a verb makes it: the pageable
+    # copies in and out around the entry's eager stages, and around a
+    # replay; host clock, in turn.
+    entry = plan_mod._EXEC_CACHE[ex._key(plan, ops)]
+    host = [torch.from_numpy(a.cpu().numpy()) for a in ops]
+    verb_ms: Dict[str, List[float]] = {"eager": [], "replay": []}
+    for _ in range(5):
+        for kind, fn in (("eager", lambda: entry.eager(host)), ("replay", lambda: entry(host))):
+            verb_ms[kind].append(host_ms(fn, reps=1))
+    log(f"  {label} from host operands (copies in and out): eager_ms="
+        f"{statistics.median(verb_ms['eager']):.3f} replay_ms={statistics.median(verb_ms['replay']):.3f} "
+        f"(medians of 5, in turn)")
+    del graph, entry
+    clear_executable_cache()
 
 
 def interleaved_breakdown(dev: torch.device) -> None:
@@ -1367,6 +1758,8 @@ def interleaved_breakdown(dev: torch.device) -> None:
     device = cuda_ms(lambda: _fused_interleaved(plan, CudaBackend(), *fused), reps=5)
     device_profile("interleaved device path 1024x10000", lambda: _fused_interleaved(plan, CudaBackend(), *fused),
                    device)
+    replay_breakdown(dev, "interleaved device path 1024x10000", plan, "interleaved", list(fused),
+                     lambda: _fused_interleaved(plan, CudaBackend(), *fused))
     log(f"  solve_batched 1024x10000 fp64 interleaved: h2d_ms={h2d:.3f} fuse_ms={fuse:.3f} "
         f"interleave_ms={gather:.3f} stage1_wide_ms={s1:.3f} thomas_wide_ms={s2:.3f} "
         f"stage3_wide_ms={s3:.3f} deinterleave_ms={scatter:.3f} d2h_ms={d2h:.3f} "
@@ -1601,25 +1994,34 @@ def main() -> int:
     rows: List[Dict[str, Any]] = []
     if "kernels" in phases:
         log("kernels: each kernel against its plain version on the card")
+        t0 = time.perf_counter()
         rows = kernel_phase(dev)
+        log(f"kernels: {time.perf_counter() - t0:.1f} s")
     # Launch counts come from the path that runs each kernel (the main phase
     # for the solver's, the lm phase for the SSD kernel's); a kernel whose
     # path did not run has none.
     launches: Dict[str, Any] = {name: None for name in LAUNCH_COUNTERS}
     if "main" in phases:
         log("main: TridiagSession(device='cuda', backend='auto', heuristic policy)")
+        t0 = time.perf_counter()
         launches.update(main_phase(dev))
+        log(f"main: {time.perf_counter() - t0:.1f} s")
     if "breakdown" in phases:
         log("breakdown: where one n=1e7 fp64 solve and one interleaved 1024x10000 "
             "solve_batched spend their time (CUDA events)")
+        t0 = time.perf_counter()
         breakdown_phase(dev)
+        log(f"breakdown: {time.perf_counter() - t0:.1f} s")
     if "lm" in phases:
         log(f"lm: {LM_ARCH} through repro_torch.launch.serve (Model.prefill/decode_step, "
             f"ssd_scan_kernel)")
+        t0 = time.perf_counter()
         launches.update(lm_phase(dev))
+        log(f"lm: {time.perf_counter() - t0:.1f} s")
 
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]
+        row["replayed_launches"] = REPLAYED.get(row["name"].split("/")[0])
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,7 @@ from repro_torch.core.tridiag.plan import (
     Sizes,
     build_plan,
     effective_size,
+    executable_cache_stats,
     plan_cache_stats,
     resolve_backend,
     set_plan_cache_capacity,
@@ -1010,11 +1011,13 @@ class TridiagSession:
         """A consistent snapshot: the engine's dispatch aggregates and
         load-shedding counters, queue occupancy (``queue_depth``,
         ``queue_high_water``, ``unresolved``), the process-wide
-        ``plan_cache`` counters and the session's ``device``."""
+        ``plan_cache`` and ``executable_cache`` counters and the session's
+        ``device``."""
         with self._cv:
             snap = self._engine.stats_snapshot()
             snap["unresolved"] = len(self._futures)
         snap["plan_cache"] = plan_cache_stats()
+        snap["executable_cache"] = executable_cache_stats()
         snap["device"] = str(self.device)
         snap["backend"] = self.backend.name
         return snap

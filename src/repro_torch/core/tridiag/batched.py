@@ -1,6 +1,7 @@
 """Batch fusion of B same-size systems into one partition solve.
 
-The counterpart of ``fuse_systems`` / ``split_systems`` in
+The counterpart of ``thomas_batched`` / ``solve_batched`` (the functional
+batched solvers) and ``fuse_systems`` / ``split_systems`` in
 ``repro.core.tridiag.batched``. With the solver convention ``dl[0] =
 du[n-1] = 0``, the partition method applied to the concatenation of B
 systems of size n is *exactly* the B independent solves: Stage 1 is per
@@ -13,10 +14,13 @@ operands, and chunks may span system boundaries.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple, TypeVar
+from typing import Any, List, Optional, Tuple, TypeVar
 
 import numpy as np
 import torch
+
+from repro_torch.core.tridiag import partition
+from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 ArrayT = TypeVar("ArrayT", np.ndarray, Tensor)
@@ -32,6 +36,57 @@ def as_tensor(a: Any, device: Optional[torch.device] = None) -> Tensor:
     if isinstance(a, Tensor):
         return a if device is None else a.to(device)
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def _batched_operands(dl: Any, d: Any, du: Any, b: Any, device: DeviceLike) -> List[Tensor]:
+    """The four (B, n) operands on ``device`` in one dtype (torch's
+    promotion rules); anything but one batch axis raises."""
+    dev = resolve_device(device)
+    ops = [as_tensor(a, dev) for a in (dl, d, du, b)]
+    if ops[1].ndim != 2:
+        raise ValueError(f"expected (batch, n) operands, got shape {tuple(ops[1].shape)}")
+    for name, a in zip(("dl", "du", "b"), (ops[0], ops[2], ops[3])):
+        if a.shape != ops[1].shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, d has {tuple(ops[1].shape)}")
+    dtype = ops[0].dtype
+    for a in ops[1:]:
+        dtype = torch.promote_types(dtype, a.dtype)
+    return [a.to(dtype).contiguous() for a in ops]
+
+
+def thomas_batched(dl: Any, d: Any, du: Any, b: Any, *, device: DeviceLike = "cuda") -> Tensor:
+    """Shape-checked Thomas solve of a (B, n) batch: (B, n) → (B, n), a
+    tensor on ``device``. On the card it is one ``thomas`` launch; on the
+    CPU the plain Thomas solve."""
+    from repro_torch.kernels.thomas.ops import thomas_cuda
+
+    return thomas_cuda(*_batched_operands(dl, d, du, b, device))
+
+
+def solve_batched(
+    dl: Any, d: Any, du: Any, b: Any, *, m: int = 10, device: DeviceLike = "cuda"
+) -> Tensor:
+    """Solve B independent systems by the partition method.
+
+    Operands are (B, n) with the usual convention (``dl[:, 0]`` and
+    ``du[:, n-1]`` ignored); returns the (B, n) solutions, a tensor on
+    ``device``. On the card: one batched Stage 1, one reduced solve of the
+    (B, P) rows and one batched Stage 3 launch. On the CPU: the plain
+    partition solve of each system.
+    """
+    ops = _batched_operands(dl, d, du, b, device)
+    n = ops[1].shape[-1]
+    if n % m:
+        raise ValueError(f"system size {n} not divisible by m={m}")
+    if ops[1].device.type != "cuda":
+        return partition.partition_solve(*ops, m=m)
+    from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_batched
+    from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_batched
+    from repro_torch.kernels.thomas.ops import thomas_cuda
+
+    coeffs = partition_stage1_cuda_batched(*ops, m=m)
+    s = thomas_cuda(coeffs.red_dl, coeffs.red_d, coeffs.red_du, coeffs.red_b)
+    return partition_stage3_cuda_batched(coeffs, s)
 
 
 def fuse_systems(

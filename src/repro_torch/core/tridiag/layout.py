@@ -27,7 +27,7 @@ inflates the footprint by at most :data:`AUTO_INTERLEAVE_MAX_WASTE`.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,38 +143,56 @@ def _uniform(sizes: Tuple[int, ...]) -> bool:
     return len(set(sizes)) == 1
 
 
-def interleave(a: Tensor, sizes: Sequence[int], m: int, *, fill: float = 0.0) -> Tensor:
+Maps = Optional[Tuple[Tensor, Tensor]]
+
+
+def gather_maps(sizes: Sequence[int], m: int, device: torch.device) -> Maps:
+    """The ``(fwd, inv)`` maps that :func:`interleave` and
+    :func:`deinterleave` read on ``device`` for this batch shape, None for a
+    same-size batch. A caller that captures the gathers into a CUDA graph
+    passes them in and holds them for the graph's life: the LRU behind them
+    may drop its entry, and the graph reads their addresses."""
+    sizes = _check_sizes(sizes, m)
+    return None if _uniform(sizes) else _device_maps(sizes, m, device)
+
+
+def interleave(
+    a: Tensor, sizes: Sequence[int], m: int, *, fill: float = 0.0, maps: Maps = None
+) -> Tensor:
     """Regather one fused (Σnᵢ,) operand to a contiguous wide (P_max, m, B).
 
     Ragged systems are padded with ``fill`` (1.0 for the diagonal, so padded
-    blocks are identity rows and never divide by zero).
+    blocks are identity rows and never divide by zero). ``maps``: see
+    :func:`gather_maps` (looked up when not given).
     """
     sizes = _check_sizes(sizes, m)
     if _uniform(sizes):
         return a.reshape(len(sizes), sizes[0] // m, m).permute(1, 2, 0).contiguous()
-    fwd, _ = _device_maps(sizes, m, a.device)
+    fwd, _ = maps if maps is not None else _device_maps(sizes, m, a.device)
     a_ext = torch.cat([a, a.new_full((1,), fill)])
     return a_ext[fwd]
 
 
 def interleave_operands(
-    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, sizes: Sequence[int], m: int
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor, sizes: Sequence[int], m: int, *,
+    maps: Maps = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Interleave all four fused operands; padding forms identity blocks."""
     return (
-        interleave(dl, sizes, m, fill=0.0),
-        interleave(d, sizes, m, fill=1.0),
-        interleave(du, sizes, m, fill=0.0),
-        interleave(b, sizes, m, fill=0.0),
+        interleave(dl, sizes, m, fill=0.0, maps=maps),
+        interleave(d, sizes, m, fill=1.0, maps=maps),
+        interleave(du, sizes, m, fill=0.0, maps=maps),
+        interleave(b, sizes, m, fill=0.0, maps=maps),
     )
 
 
-def deinterleave(xw: Tensor, sizes: Sequence[int], m: int) -> Tensor:
-    """Regather a wide (P_max, m, B) solution back to a fused (Σnᵢ,) one."""
+def deinterleave(xw: Tensor, sizes: Sequence[int], m: int, *, maps: Maps = None) -> Tensor:
+    """Regather a wide (P_max, m, B) solution back to a fused (Σnᵢ,) one.
+    ``maps``: see :func:`gather_maps`."""
     sizes = _check_sizes(sizes, m)
     if _uniform(sizes):
         return xw.permute(2, 0, 1).reshape(sum(sizes))
-    _, inv = _device_maps(sizes, m, xw.device)
+    _, inv = maps if maps is not None else _device_maps(sizes, m, xw.device)
     return xw.reshape(-1)[inv]
 
 

@@ -32,12 +32,15 @@ stages on the CPU.
 
 Plans are memoised by their ``(sizes, m, num_chunks)`` signature in a bounded,
 lock-protected LRU: a session solves from its worker thread and its caller's
-thread at once, and serving traffic repeats batch compositions.
+thread at once, and serving traffic repeats batch compositions. Beside it, a
+second LRU keeps the fused path's executables (on a CUDA device, a CUDA graph
+of its stages; see :func:`executable_cache_stats`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 import time
 from collections import OrderedDict
@@ -103,9 +106,14 @@ class StageBackend:
     solve runs B independent solves on (P, B) rows; wide Stage 3 returns the
     (P, m, B) solution. The defaults are the plain wide stages, so every
     backend serves ``layout="interleaved"``.
+
+    ``capturable``: the fused executor may capture the backend's stages
+    into a CUDA graph. Only a backend whose stages launch a fixed set of
+    kernels and never wait on the device may say so.
     """
 
     name = "abstract"
+    capturable = False
 
     def make_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
         raise NotImplementedError
@@ -128,7 +136,11 @@ class StageBackend:
 
 @dataclass(frozen=True)
 class ReferenceBackend(StageBackend):
-    """Plain PyTorch stages (:mod:`repro_torch.core.tridiag.partition`)."""
+    """Plain PyTorch stages (:mod:`repro_torch.core.tridiag.partition`).
+
+    Not capturable: its reduced solve is a Python loop over the rows, a few
+    launches a row, so a graph of it would hold tens of thousands of nodes
+    a signature; it serves as the plain version the kernels are held to."""
 
     name = "reference"
 
@@ -150,6 +162,7 @@ class CudaBackend(StageBackend):
     """
 
     name = "cuda"
+    capturable = True
 
     def make_stage1(self, m: int) -> Callable[..., partition.PartitionCoeffs]:
         from repro_torch.kernels.partition_stage1.ops import (
@@ -443,6 +456,118 @@ def build_plan(
     return plan
 
 
+# ------------------------------------------------------- executable cache --
+# The fused path keeps one executable per (plan, backend, resolved layout,
+# device, operand dtype, leading shape) signature (:class:`_FusedExecutable`).
+# The reference's key also names buffer donation and a mesh; the port has
+# neither. With a capturable backend on a CUDA device, an entry captures its
+# stages into a CUDA graph when its signature is seen the second time, and
+# from then on holds device memory (static operands, the graph's private
+# pool); every other entry holds the eager stages. So the LRU is bounded in
+# entries and, per device, in the bytes its graphs hold: at most
+# _EXEC_CACHE_MEMORY_SHARE of the card. Both are guarded by _CACHE_LOCK
+# (sessions reach the cache from their worker and caller threads at once).
+_EXEC_CACHE_CAPACITY = 128
+# A quarter: an evicted graph costs one eager call and a capture when its
+# signature comes back, while a card that runs out of memory fails a solve.
+# So the graphs leave three quarters of the card to what must fit: eager
+# misses, the staged path and the caller's own tensors. On an 80 GB card a
+# quarter still holds about 25 graphs of the largest system the paper
+# solves (n = 1e7 fp64, about 0.8 GB an entry).
+_EXEC_CACHE_MEMORY_SHARE = 0.25
+_EXEC_CACHE: "OrderedDict[Tuple[Any, ...], _FusedExecutable]" = OrderedDict()
+_EXEC_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_EXEC_BYTES: Dict[torch.device, int] = {}
+# Devices whose cached graphs were dropped since the last release. A dropped
+# graph's pool stays reserved by torch's allocator, which frees such pools
+# only when asked (empty_cache) or when a cudaMalloc fails outside a capture:
+# one that fails inside a capture raises. So a capture releases them first.
+_EXEC_DROPPED: "set[torch.device]" = set()
+
+
+def executable_cache_stats() -> Dict[str, int]:
+    """Hit/miss/eviction counters of the fused-executable LRU, plus its
+    ``size``: the reference's keys. ``bytes`` is the port's own, beside
+    them: the device memory its CUDA graphs hold (0 on the CPU)."""
+    with _CACHE_LOCK:
+        return {**_EXEC_STATS, "size": len(_EXEC_CACHE), "bytes": sum(_EXEC_BYTES.values())}
+
+
+def clear_executable_cache() -> None:
+    """Empty the fused-executable LRU and reset its counters (test hook).
+    The graphs dropped give their memory back to torch's allocator once no
+    call is replaying them."""
+    with _CACHE_LOCK:
+        _EXEC_DROPPED.update(dev for dev, nbytes in _EXEC_BYTES.items() if nbytes)
+        _EXEC_CACHE.clear()
+        _EXEC_BYTES.clear()
+        _EXEC_STATS["hits"] = 0
+        _EXEC_STATS["misses"] = 0
+        _EXEC_STATS["evictions"] = 0
+
+
+def set_executable_cache_capacity(capacity: int) -> None:
+    """Resize the fused-executable LRU (process-wide); 0 disables caching
+    (every fused dispatch then runs its stages eagerly and captures nothing:
+    only useful to bound device memory under never-repeating traffic).
+    Executables beyond the new capacity are evicted oldest-first."""
+    global _EXEC_CACHE_CAPACITY
+    if capacity < 0:
+        raise ValueError(f"executable cache capacity must be >= 0, got {capacity}")
+    with _CACHE_LOCK:
+        _EXEC_CACHE_CAPACITY = int(capacity)
+        while len(_EXEC_CACHE) > _EXEC_CACHE_CAPACITY:
+            _evict(next(iter(_EXEC_CACHE)))
+
+
+def _evict(key: Tuple[Any, ...]) -> None:
+    """Drop one entry and its bytes, and count the eviction."""
+    with _CACHE_LOCK:  # reentrant: the callers hold it already
+        entry = _EXEC_CACHE.pop(key)
+        if entry.nbytes:
+            _EXEC_BYTES[entry.device] -= entry.nbytes
+            _EXEC_DROPPED.add(entry.device)
+        _EXEC_STATS["evictions"] += 1
+
+
+def _release_dropped(device: torch.device) -> None:
+    """Give the pools of the graphs dropped on ``device`` back to the card
+    (``empty_cache``, which also frees the allocator's other unused cached
+    blocks). Called under _CAPTURE_LOCK, so no capture of this process is
+    under way; a graph still being replayed by a call gives its pool back at
+    a later release."""
+    with _CACHE_LOCK:
+        dropped = device in _EXEC_DROPPED
+        _EXEC_DROPPED.discard(device)
+    if dropped:
+        torch.cuda.empty_cache()
+
+
+def _byte_budget(device: torch.device) -> int:
+    """The bytes the cached graphs on ``device`` may hold together."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(_EXEC_CACHE_MEMORY_SHARE * total)
+
+
+def _charge(entry: "_FusedExecutable", nbytes: int) -> None:
+    """Count a graph just captured against its device's byte budget, then
+    evict the oldest graph-holding entries on that device until the
+    cache is within it: the new entry too, last, when it alone exceeds the
+    budget (its call still completes; the signature misses next time). An
+    entry evicted while it captured is not counted, but its device is
+    marked as holding a dropped graph: its pool goes back at the next
+    release after its call ends."""
+    budget = _byte_budget(entry.device)
+    with _CACHE_LOCK:
+        if _EXEC_CACHE.get(entry.key) is not entry:
+            _EXEC_DROPPED.add(entry.device)
+            return
+        entry.nbytes = nbytes
+        _EXEC_BYTES[entry.device] = _EXEC_BYTES.get(entry.device, 0) + nbytes
+        while _EXEC_BYTES[entry.device] > budget:
+            _evict(next(k for k, e in _EXEC_CACHE.items() if e.device == entry.device and e.nbytes))
+
+
 # -------------------------------------------------------- the fused executor --
 _RED_FIELDS = ("red_dl", "red_d", "red_du", "red_b")
 
@@ -516,15 +641,18 @@ def _fused(plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Te
 
 
 def _fused_interleaved(
-    plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Tensor, b: Tensor
+    plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *,
+    maps: layout_mod.Maps = None,
 ) -> Tensor:
     """The interleaved three-stage solve of ``plan`` on the operands' device:
     interleave, wide Stage 1, wide reduced solve, wide Stage 3, deinterleave.
-    The plan's chunks do not apply: the B systems are the parallel axis."""
+    The plan's chunks do not apply: the B systems are the parallel axis.
+    ``maps``: see :func:`~.layout.gather_maps`."""
     m, sizes = plan.m, plan.sizes
-    c = backend.make_wide_stage1(m)(*layout_mod.interleave_operands(dl, d, du, b, sizes, m))
+    wide = layout_mod.interleave_operands(dl, d, du, b, sizes, m, maps=maps)
+    c = backend.make_wide_stage1(m)(*wide)
     s = backend.make_wide_reduced_solve()(c.red_dl, c.red_d, c.red_du, c.red_b)
-    return layout_mod.deinterleave(backend.make_wide_stage3()(c, s), sizes, m)
+    return layout_mod.deinterleave(backend.make_wide_stage3()(c, s), sizes, m, maps=maps)
 
 
 def _check_layout(layout: str) -> str:
@@ -533,15 +661,15 @@ def _check_layout(layout: str) -> str:
     return layout
 
 
-def _promote(plan: SolvePlan, ops: List[Tensor]) -> List[Tensor]:
-    """The four operands in one floating dtype (torch's promotion rules),
-    checked for equal shapes and for the plan's row count."""
+def _operand_dtype(plan: SolvePlan, ops: Sequence[Tensor]) -> torch.dtype:
+    """The one floating dtype the four operands are solved in (torch's
+    promotion rules), after checking them for equal shapes and for the
+    plan's row count."""
     dtype = ops[0].dtype
     for a in ops[1:]:
         dtype = torch.promote_types(dtype, a.dtype)
     if not dtype.is_floating_point:
         raise TypeError(f"the solver runs in floating point, got {dtype} operands")
-    ops = [a.to(dtype) for a in ops]
     shape = ops[1].shape
     for a in ops:
         if a.shape != shape:
@@ -549,7 +677,155 @@ def _promote(plan: SolvePlan, ops: List[Tensor]) -> List[Tensor]:
     n = int(shape[-1])
     if n != plan.total_size:
         raise ValueError(f"operands have {n} rows but the plan lays out {plan.total_size}")
-    return ops
+    return dtype
+
+
+def _promote(plan: SolvePlan, ops: List[Tensor]) -> List[Tensor]:
+    """The four operands in their :func:`_operand_dtype`."""
+    dtype = _operand_dtype(plan, ops)
+    return [a.to(dtype) for a in ops]
+
+
+# One graph capture at a time in the process (CUDA graphs' rule), on a
+# stream of its own per device; _CAPTURE_LOCK guards that stream table too.
+_CAPTURE_LOCK = threading.RLock()
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+_CU_STREAM_NON_BLOCKING = 1
+
+
+def _capture_stream(device: torch.device) -> Any:
+    """This process's capture stream on ``device``. It is made by
+    ``cuStreamCreate``, not taken from torch's stream pool, which other
+    threads draw on (the staged executor takes one stream a chunk) and
+    whose work would then land in the capture; and it is non-blocking, so
+    that other threads' work on the legacy default stream has no implicit
+    tie to it."""
+    with _CAPTURE_LOCK:
+        stream = _CAPTURE_STREAMS.get(device.index)
+        if stream is None:
+            create = ctypes.CDLL("libcuda.so.1").cuStreamCreate
+            create.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint]
+            create.restype = ctypes.c_int
+            handle = ctypes.c_void_p()
+            with torch.cuda.device(device):
+                err = create(ctypes.byref(handle), _CU_STREAM_NON_BLOCKING)
+            if err != 0:
+                raise RuntimeError(f"cuStreamCreate failed on {device}: CUresult {err}")
+            stream = torch.cuda.ExternalStream(handle.value, device=device)
+            _CAPTURE_STREAMS[device.index] = stream
+        return stream
+
+
+class _FusedExecutable:
+    """One signature of the fused path: its eager stages and, once captured,
+    a CUDA graph of them.
+
+    The call that misses the cache runs the stages eagerly (:meth:`eager`),
+    as a call with no cache would; nothing is allocated for the entry. A
+    hit (:meth:`__call__`) with a capturable backend on a CUDA device
+    captures the graph the first time: the operands go into static buffers,
+    (4, *shape) in ``dtype``, the stages run eagerly on them (the warm-up:
+    it loads the kernels, sets their attributes and gives this call's
+    answer), then the same stages are captured over those buffers, and the
+    bytes the entry now holds are charged to the cache (:func:`_charge`).
+    Every later hit copies the operands in (a host operand straight from the
+    host, cast there first when its dtype is not ``dtype``; a device operand
+    on the device), replays the graph on the current stream, adds the
+    launches the capture recorded to the kernels' ``replayed`` counts, and
+    copies the solution to the host. A hit runs under this entry's own lock,
+    so threads sharing it never overwrite each other's buffers. Everything
+    the graph reads or wrote stays referenced here (the static tensors, the
+    graph and its memory pool, the layout's gather maps) until the entry is
+    dropped; the next capture on the device gives dropped graphs' pools
+    back (:func:`_release_dropped`). A failed capture raises. Elsewhere a
+    hit runs the eager stages.
+    """
+
+    def __init__(self, key: Tuple[Any, ...], backend: StageBackend) -> None:
+        plan, _, layout, device, dtype, lead = key
+        self.key = key
+        self.plan, self.layout, self.device, self.dtype = plan, layout, device, dtype
+        self.shape = lead + (plan.total_size,)
+        self.backend = backend
+        self.capturable = device.type == "cuda" and backend.capturable
+        self.nbytes = 0
+        self._lock = threading.Lock()
+        self.graph: Optional[Any] = None
+        self._run: Optional[Callable[..., Tensor]] = None  # holds the gather maps
+        self._static: Optional[Tensor] = None
+        self._out: Optional[Tensor] = None
+        self._launches: Dict[Any, int] = {}
+
+    def _stages(self, maps: layout_mod.Maps = None) -> Callable[..., Tensor]:
+        if self.layout == "interleaved":
+            return partial(_fused_interleaved, self.plan, self.backend, maps=maps)
+        return partial(_fused, self.plan, self.backend)
+
+    def eager(self, ops: Sequence[Tensor]) -> np.ndarray:
+        """The stages run eagerly on the operands, moved to the device."""
+        x = self._stages()(*(a.to(device=self.device, dtype=self.dtype) for a in ops))
+        return x.cpu().numpy()
+
+    def __call__(self, ops: Sequence[Tensor]) -> np.ndarray:
+        if not self.capturable:
+            return self.eager(ops)
+        with self._lock, torch.cuda.device(self.device):
+            if self.graph is None:
+                x, nbytes = self._capture(ops)
+            else:
+                assert self._static is not None and self._out is not None
+                _fill(self._static, ops)
+                self.graph.replay()
+                for counter, n in self._launches.items():
+                    counter.add_replayed(n)
+                return self._out.cpu().numpy()
+        _charge(self, nbytes)
+        return x
+
+    def _capture(self, ops: Sequence[Tensor]) -> Tuple[np.ndarray, int]:
+        """The warm-up and the capture (see the class); returns the eager
+        answer and the device bytes the entry holds from now on: the static
+        operands, and what ``memory_reserved`` rose by during the capture,
+        at least the solution (the graph's private pool starts empty, so
+        every byte it allocates is a new segment; another thread's
+        allocation in that window counts too, which only overstates)."""
+        from repro_torch.kernels import common
+
+        maps = None
+        if self.layout == "interleaved":
+            # The graph reads these by address: held for its life, and any
+            # host-to-device copy that makes them happens now, not inside.
+            maps = layout_mod.gather_maps(self.plan.sizes, self.plan.m, self.device)
+        run = self._stages(maps)
+        static = torch.empty((4,) + self.shape, dtype=self.dtype, device=self.device)
+        _fill(static, ops)
+        x = run(*static.unbind(0)).cpu().numpy()
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK:
+            stream = _capture_stream(self.device)
+            _release_dropped(self.device)
+            before = torch.cuda.memory_reserved(self.device)
+            with torch.cuda.stream(stream), common.recording() as launches:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = run(*static.unbind(0))
+                finally:
+                    graph.capture_end()
+            grown = torch.cuda.memory_reserved(self.device) - before
+        # Kept only now: a capture that raised leaves the entry as it was.
+        self._run, self._static, self._out, self._launches = run, static, out, launches
+        self.graph = graph
+        return x, static.nbytes + max(grown, out.nbytes)
+
+
+def _fill(static: Tensor, ops: Sequence[Tensor]) -> None:
+    """Copy the four operands into an entry's (4, *shape) static buffer: a
+    host operand straight from the host, promoted there first (as
+    :func:`_promote` does); a device operand on the device."""
+    for dst, a in zip(static, ops):
+        if a.device.type == "cpu":
+            a = a.to(static.dtype)
+        dst.copy_(a)
 
 
 class FusedExecutor:
@@ -566,7 +842,22 @@ class FusedExecutor:
     ``layout`` ("system-major" | "interleaved" | "auto") picks the operand
     layout per plan through :func:`~.layout.resolve_layout`; "auto"
     interleaves flat fused batches of at least
-    ``layout.AUTO_INTERLEAVE_MIN_BATCH`` systems.
+    ``layout.AUTO_INTERLEAVE_MIN_BATCH`` systems. The resolved layout is
+    part of the executable-cache key.
+
+    Executables are cached in the module-level LRU
+    (:func:`executable_cache_stats`) under ``_CACHE_LOCK``, one entry per
+    (plan, backend name, resolved layout, device, promoted operand dtype,
+    leading shape); a hit or a miss is counted before the stages run. The
+    call that misses runs the stages eagerly and keeps an entry that holds
+    no device memory. On a CUDA device with a capturable backend (the
+    kernels') the first hit captures the stages into a CUDA graph, which
+    every later hit replays (:class:`_FusedExecutable`); other entries run
+    eagerly on every hit. Entries are evicted oldest-first past the
+    capacity, and graph-holding entries oldest-first past the device's byte
+    budget (``_EXEC_CACHE_MEMORY_SHARE`` of the card); an evicted graph's
+    pool goes back to the card before the next capture. At capacity 0
+    every call runs eagerly and nothing is kept.
     """
 
     def __init__(
@@ -589,14 +880,33 @@ class FusedExecutor:
         """The concrete layout this executor runs ``plan`` in."""
         return resolve_layout(self.layout, plan.sizes, plan.m, fused=True, lead_ndim=lead_ndim)
 
+    def _key(self, plan: SolvePlan, ops: Sequence[Tensor]) -> Tuple[Any, ...]:
+        lead = tuple(ops[1].shape[:-1])
+        layout = self.resolved_layout(plan, len(lead))
+        return (plan, self.backend.name, layout, self.device, _operand_dtype(plan, ops), lead)
+
     def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
         t0 = time.perf_counter()
-        ops = _promote(plan, [as_tensor(a, self.device) for a in (dl, d, du, b)])
-        if self.resolved_layout(plan, ops[1].ndim - 1) == "interleaved":
-            x = _fused_interleaved(plan, self.backend, *ops)
+        ops = [as_tensor(a) for a in (dl, d, du, b)]  # where they are; host data is not copied
+        key = self._key(plan, ops)
+        with _CACHE_LOCK:
+            entry = _EXEC_CACHE.get(key)
+            if entry is not None:
+                _EXEC_CACHE.move_to_end(key)
+                _EXEC_STATS["hits"] += 1
+            else:
+                _EXEC_STATS["misses"] += 1
+        if entry is not None:
+            out = entry(ops)
         else:
-            x = _fused(plan, self.backend, *ops)
-        out = x.cpu().numpy()
+            entry = _FusedExecutable(key, self.backend)
+            out = entry.eager(ops)
+            with _CACHE_LOCK:
+                # A racing thread's miss is harmless: the first entry in stays.
+                if key not in _EXEC_CACHE and _EXEC_CACHE_CAPACITY > 0:
+                    _EXEC_CACHE[key] = entry
+                    while len(_EXEC_CACHE) > _EXEC_CACHE_CAPACITY:
+                        _evict(next(iter(_EXEC_CACHE)))
         return out, ChunkTiming(
             num_chunks=plan.num_chunks,
             t_stage1_ms=0.0,

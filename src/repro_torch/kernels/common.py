@@ -10,9 +10,10 @@ so a run can show that the main path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,28 +53,87 @@ def assert_allclose_by_dtype(actual: object, desired: object, dtype: object) -> 
 class LaunchCounter:
     """A plain-int count of a wrapper's kernel launches (thread-safe).
 
-    Incremented where the wrapper launches its kernel and nowhere else, so
-    the plain CPU path and any comparison run outside a reset window leave
-    the main path's count unmixed.
+    ``count`` is incremented where the wrapper launches its kernel and
+    nowhere else, so the plain CPU path and any comparison run outside a
+    reset window leave the main path's count unmixed. A CUDA graph capture
+    launches nothing: inside :func:`recording` this thread's adds go to the
+    capture's tally instead, and each replay of the graph adds that tally to
+    ``replayed``, kept apart from ``count``. So a call of the fused executor
+    raises ``total`` by one set of launches whether it runs eagerly (a
+    cache miss) or replays its CUDA graph (a hit), and ``count`` holds only
+    the launches a wrapper made.
     """
 
     def __init__(self, name: str) -> None:
         self.name = name
         self._lock = threading.Lock()
         self._count = 0
+        self._replayed = 0
 
     @property
     def count(self) -> int:
         with self._lock:
             return self._count
 
-    def add(self) -> None:
+    @property
+    def replayed(self) -> int:
         with self._lock:
-            self._count += 1
+            return self._replayed
+
+    @property
+    def total(self) -> int:
+        with self._lock:
+            return self._count + self._replayed
+
+    def add(self, n: int = 1) -> None:
+        tally = getattr(_RECORDING, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + n
+            return
+        with self._lock:
+            self._count += n
+
+    def add_replayed(self, n: int) -> None:
+        with self._lock:
+            self._replayed += n
 
     def reset(self) -> None:
         with self._lock:
             self._count = 0
+            self._replayed = 0
+
+
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[LaunchCounter, int]]:
+    """Within the block, this thread's launches are recorded, not counted:
+    the yielded dict gets what each :class:`LaunchCounter` would have been
+    given. A CUDA graph capture runs under it; its replays add the tally
+    with :meth:`LaunchCounter.add_replayed`."""
+    outer = getattr(_RECORDING, "tally", None)
+    tally: Dict[LaunchCounter, int] = {}
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = outer
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every counter of :data:`repro_torch.kernels.LAUNCH_COUNTERS` now, as
+    its ``total``: the launches made by wrappers and by graph replays."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    return {name: c.total for name, c in LAUNCH_COUNTERS.items()}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The counters that rose since ``before`` (a :func:`launch_counts`
+    snapshot), by how much."""
+    now = launch_counts()
+    return {name: now[name] - before.get(name, 0) for name in now if now[name] != before.get(name, 0)}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

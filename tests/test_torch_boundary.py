@@ -28,6 +28,17 @@ PORT_REGISTRY = Registry(
             guards=("_CACHE_LOCK",),
         ),
         GuardedGlobals(
+            module="repro_torch/core/tridiag/plan.py",
+            names=("_EXEC_CACHE", "_EXEC_STATS", "_EXEC_CACHE_CAPACITY", "_EXEC_BYTES",
+                   "_EXEC_DROPPED"),
+            guards=("_CACHE_LOCK",),
+        ),
+        GuardedGlobals(
+            module="repro_torch/core/tridiag/plan.py",
+            names=("_CAPTURE_STREAMS",),
+            guards=("_CAPTURE_LOCK",),
+        ),
+        GuardedGlobals(
             module="repro_torch/kernels/build.py",
             names=("_LIBS",),
             guards=("_LOCK",),
@@ -113,6 +124,18 @@ def test_port_registry_fires_on_an_unguarded_touch():
     assert [v.code for v in found] == ["TRD001"]
     for entry in PORT_REGISTRY.guarded_globals + PORT_REGISTRY.guarded_attrs:
         assert (REPO / "src" / entry.module).exists(), entry.module
+
+
+@pytest.mark.parametrize("name", ["_EXEC_CACHE", "_EXEC_STATS", "_EXEC_CACHE_CAPACITY",
+                                  "_EXEC_BYTES", "_EXEC_DROPPED", "_CAPTURE_STREAMS"])
+def test_port_registry_covers_the_executable_cache(name):
+    found = check_source(
+        f"def peek():\n    return {name}\n",
+        "src/repro_torch/core/tridiag/plan.py",
+        registry=PORT_REGISTRY,
+        select=["TRD001"],
+    )
+    assert [v.code for v in found] == ["TRD001"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
