@@ -85,7 +85,27 @@ Phases:
    eager calls (events in turn, enqueue, device time, profiler), with the
    device memory one cache entry holds (and is charged), which
    ``clear_executable_cache`` must give back.
-5. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
+5. ``closed_loop``: the closed loop at fp64, m = 10, ``backend="cuda"``.
+   (a) The paper's experiment on this card: ``measure_dataset`` over the
+   paper's 13 sizes from 1,000 to 1e6, ``measure_batched_dataset`` at
+   10,000 and 100,000 x batches 1, 4, 16, and ``measure_ragged_dataset`` on
+   one mix, each over chunk counts 1 ... 32 through the staged path (one
+   CUDA stream per chunk, the reduced solve on the host); a row per size
+   prints the median time per chunk count, the empirical optimum, the
+   overlappable share and the picks of the shipped heuristic and of
+   ``fit_batched_stream_heuristic`` refitted on the card's rows. (b) Fused
+   batches of 4 x 25,000, 4 x 100,000, 4 x 1e6 and 4 x 2.5e6 (two
+   effective sizes each side of the Eq. 7 regime split) served at each
+   fixed chunk count
+   (a cache miss, a capture, a replay), their telemetry recorded into one
+   ``autotune="live"`` session whose worker refits and swaps the policy on
+   its own; each of its batches must carry the chunk count of the refit it
+   was priced by, ``plan_for`` the last refit's. (c) With the refit latency
+   model and ``max_predicted_ms``, one request whose timeout is under its
+   prediction is shed with ``PredictedTimeoutError`` and no launch; then
+   deadline-free batches (32 x 10,000 among them, interleaved) print their
+   median residuals. The six solver kernels' launch counts must rise.
+6. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
    and 4 greedy decode steps on the card (the SSD kernel) against the same
@@ -136,7 +156,7 @@ PROFILE_ATTEMPTS = 5
 # incomplete trace.
 PROFILE_PAD = 64
 M = 10
-ALL_PHASES = ("build", "kernels", "main", "breakdown", "lm")
+ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "lm")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
@@ -1767,6 +1787,219 @@ def interleaved_breakdown(dev: torch.device) -> None:
         f"wide Thomas share of device={s2 / device:.3f}")
 
 
+# --------------------------------------------------------------- closed loop --
+# The campaign takes the paper's sizes up to this one: past it the staged
+# path's host reduced solve (a Python loop, ~10 us a row) makes one size
+# cost minutes over its 24 solves.
+CAMPAIGN_MAX = 1_000_000
+CLOSED_LOOP_KERNELS = MAIN_KERNELS[:6]
+
+
+def closed_loop_phase(dev: torch.device, campaign_sizes: Optional[Tuple[int, ...]] = None,
+                      batched_sizes: Tuple[int, ...] = (10_000, 100_000),
+                      batches: Tuple[int, ...] = (1, 4, 16),
+                      mix: Tuple[int, ...] = (10_000, 40_000, 100_000, 400_000),
+                      served_sizes: Tuple[int, ...] = (25_000, 100_000, 1_000_000, 2_500_000),
+                      wide: Tuple[int, int] = (32, 10_000), shed_size: int = 4_000_000) -> Dict[str, int]:
+    """The closed loop on the card at fp64, m = 10, ``backend="cuda"``:
+    (a) the staged campaigns over the chunk candidates and the Eq. 4-7
+    refit on their rows; (b) fused traffic served at fixed chunk counts,
+    its telemetry fed to one ``autotune="live"`` session whose worker
+    refits and swaps the chunk policy on its own; (c) predicted-latency
+    admission with the refit latency model: one request shed with no
+    launch, then deadline-free batches and their residuals. The keyword
+    arguments are the sizes (the defaults are the card's). The served
+    batches have effective sizes on both sides of the Eq. 7 regime split
+    (1e6), two on each: each regime's 5-parameter fit needs at least 5
+    training rows, and with one size a regime every refit raises. Returns
+    the launches of the path's kernels over the phase."""
+    from repro_torch.api import (
+        HeuristicChunkPolicy,
+        OnlineRefitter,
+        PredictedTimeoutError,
+        SolveRequest,
+        SolverConfig,
+        TridiagSession,
+        clear_executable_cache,
+    )
+    from repro_torch.core.autotune import fit_batched_stream_heuristic, fit_stream_heuristic
+    from repro_torch.core.streams import PAPER_SIZES, STREAM_CANDIDATES, StreamDataset, StreamSimulator
+    from repro_torch.core.streams.measure import (
+        measure_batched_dataset,
+        measure_dataset,
+        measure_ragged_dataset,
+    )
+    from repro_torch.core.tridiag.plan import price_chunks
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.common import assert_allclose_by_dtype, launch_counts, launches_since
+
+    on_card = dev.type == "cuda"
+    if campaign_sizes is None:
+        campaign_sizes = tuple(n for n in PAPER_SIZES if n <= CAMPAIGN_MAX)
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+    clear_executable_cache()
+    seconds: Dict[str, float] = {}
+
+    # ---- (a) the campaign: the paper's experiment on this card.
+    t0 = time.perf_counter()
+    kw = dict(m=M, backend="cuda", device=dev)
+    single = measure_dataset(campaign_sizes, STREAM_CANDIDATES, reps=3, **kw)
+    seconds["(a) single"] = time.perf_counter() - t0
+    batched = measure_batched_dataset(batched_sizes, batches, STREAM_CANDIDATES, reps=2, **kw)
+    seconds["(a) batched"] = time.perf_counter() - t0 - seconds["(a) single"]
+    ragged = measure_ragged_dataset([mix], STREAM_CANDIDATES, reps=3, **kw)
+    rows = single.rows + batched.rows + ragged.rows
+    for r in rows:
+        for key in ("sum", "t_str", "t_non_str", "t_overhead"):
+            assert np.isfinite(r[key]), r
+    shipped = fit_stream_heuristic(StreamSimulator(seed=1).dataset(reps=2))
+    campaign_fit = fit_batched_stream_heuristic(StreamDataset(rows))
+    assert campaign_fit is not None and campaign_fit.base.sum_model is not None
+    log("  (a) campaign: staged solves (one CUDA stream per chunk, reduced solve on the host), "
+        "t_str in ms, median of the reps; k=1 is t_non_str, the best of the baseline reps; "
+        "opt: the k of the lowest best-of-reps time")
+    for label, data in (("single", single), ("batched", batched), ("ragged", ragged)):
+        cells: Dict[Tuple[int, int], List[Dict[str, Any]]] = {}
+        for r in data.rows:
+            cells.setdefault((r["size"], r.get("batch", 1)), []).append(r)
+        for (n, b), cell in sorted(cells.items()):
+            t_non = cell[0]["t_non_str"]
+            med = {1: t_non}
+            best = {1: t_non}
+            for k in STREAM_CANDIDATES[1:]:
+                ts = [r["t_str"] for r in cell if r["num_str"] == k]
+                med[k], best[k] = statistics.median(ts), min(ts)
+            opt = min(best, key=best.get)
+            sizes = mix if label == "ragged" else (n,) * b
+            picks = (price_chunks(shipped, sizes), price_chunks(campaign_fit, sizes))
+            assert opt in STREAM_CANDIDATES and all(p in STREAM_CANDIDATES for p in picks), (n, b, opt, picks)
+            log(f"    {label} n={n} batch={b}: t_str " + " ".join(f"k{k}={v:.3f}" for k, v in med.items())
+                + f"; opt={opt} overlappable={cell[0]['sum'] / t_non:.3f} "
+                f"shipped_pick={picks[0]} refit_pick={picks[1]}")
+    seconds["(a) campaign"] = time.perf_counter() - t0
+    popt = {name: None if p is None else [float(f"{v:.4g}") for v in p]
+            for name, p in (("small", campaign_fit.base.popt_small), ("big", campaign_fit.base.popt_big))}
+    log(f"  (a) campaign fit on {len(rows)} rows: Eq. 4 sum = "
+        f"{campaign_fit.base.sum_model.coef[0]:.4e}*n + {campaign_fit.base.sum_model.intercept:.4e} ms; "
+        f"Eq. 7 popt {popt}")
+
+    # ---- (b) the closed loop, live: fixed chunk counts feed one live session.
+    t1 = time.perf_counter()
+    base = SolverConfig(m=M, device=dev, backend="cuda", max_batch=4, max_predicted_ms=1e6)
+    traffic = {n: [system(n, 300 + i, np.float64) for i in range(4)] for n in served_sizes}
+
+    def serve(session: Any, sizes: Tuple[int, ...], rid0: int = 0) -> None:
+        futs = [session.submit(SolveRequest(rid0 + i, *traffic[n][i % 4][:4]))
+                for i, n in enumerate(sizes)]
+        for i, (f, n) in enumerate(zip(futs, sizes)):
+            assert_allclose_by_dtype(f.result(timeout=300), traffic[n][i % 4][4], np.float64)
+
+    observations = []
+    for n in served_sizes:
+        lat = {}
+        for k in STREAM_CANDIDATES:
+            with TridiagSession(base.replace(num_chunks=k)) as s:
+                for rep in range(3):
+                    serve(s, (n,) * 4, 4 * rep)
+                obs = s.telemetry.snapshot()
+            assert [(o.sizes, o.num_chunks, o.dispatch) for o in obs] == [((n,) * 4, k, "fused")] * 3, obs
+            lat[k] = [o.latency_ms for o in obs]
+            observations.extend(obs)
+        log(f"  (b) 4 x {n} fused, latency_ms by k as (miss, capture, replay): "
+            + " ".join(f"k{k}=({a:.3f}, {b:.3f}, {c:.3f})" for k, (a, b, c) in lat.items()))
+    live_cfg = base.replace(autotune="live", refit_min_samples=len(observations), refit_interval_s=0.0,
+                            max_predicted_ms=None)
+    served = tuple(n for n in served_sizes for _ in range(4))
+    with TridiagSession(live_cfg) as live:
+        for o in observations:
+            live.telemetry.record(o)
+        before = [(n,) * 4 for n in served_sizes]
+        assert all(live.plan_for(s).num_chunks == 1 for s in before)
+        serve(live, served)  # the worker's first refit runs before its first dispatch
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            tune = live.stats["autotune"]
+            if tune["refits"] >= 1 or tune["refit_errors"]:
+                break
+            time.sleep(0.01)
+    stats = live.stats
+    refitter = live._refitter
+    assert stats["autotune"]["refits"] >= 1 and not stats["autotune"]["refit_errors"], stats["autotune"]
+    final = refitter.last_heuristic()
+    model = refitter.last_latency_model()
+    assert final is not None and model is not None
+    # The worker refits before every dispatch (interval 0), so batch j was
+    # priced by the refit of the window it saw: the fixed-k observations
+    # and the live batches before it. The refit is a pure function of them.
+    window = list(observations)
+    for j, pb in enumerate(stats["per_batch"]):
+        h = OnlineRefitter("live", min_samples=1).refit_from(window).heuristic
+        assert pb["num_chunks"] == price_chunks(h, pb["sizes"]), (j, pb["num_chunks"])
+        window.append(live.telemetry.snapshot()[len(observations) + j])
+    for sizes in before:
+        assert live.plan_for(sizes).num_chunks == price_chunks(final, sizes), sizes
+    picks = {sizes[0]: price_chunks(final, sizes) for sizes in before}
+    first = OnlineRefitter("live", min_samples=1).refit_from(observations).heuristic
+    log(f"  (b) live refit: {stats['autotune']['refits']} refits (worker, interval 0), "
+        f"per-batch chunks {[pb['num_chunks'] for pb in stats['per_batch']]}, "
+        f"picks by size of 4-system batches: first refit "
+        f"{ {s[0]: price_chunks(first, s) for s in before} }, last {picks}; shipped "
+        f"{ {s[0]: price_chunks(shipped, s) for s in before} }; campaign fit "
+        f"{ {s[0]: price_chunks(campaign_fit, s) for s in before} }; agreement_rate="
+        f"{stats['autotune']['agreement_rate']}")
+    log(f"  (b) LatencyModel (ms = c0 + c1*N + c2*N/k) coef={model.coef} samples={model.samples}")
+    seconds["(b) live"] = time.perf_counter() - t1
+
+    # ---- (c) predicted admission with the refit latency model.
+    t2 = time.perf_counter()
+    adm_cfg = base.replace(num_chunks=None, policy=HeuristicChunkPolicy(final), max_batch=wide[0],
+                           max_wait_ms=50.0, max_predicted_ms=1e4)
+    doomed = system(shed_size, 400, np.float64)
+    with TridiagSession(adm_cfg) as adm:
+        adm._engine.set_latency_model(model)
+        pred = adm._engine.predicted_batch_ms((shed_size,))
+        assert pred is not None and pred > 0, pred
+        counts = launch_counts()
+        fut = adm.submit(SolveRequest(10_000, *doomed[:4], timeout_ms=0.9 * pred))
+        err = fut.exception(timeout=60)
+        assert isinstance(err, PredictedTimeoutError), err
+        assert not launches_since(counts), launches_since(counts)
+        assert adm.stats["shed_predicted"] == 1 and adm.stats["batches"] == 0, adm.stats
+        log(f"  (c) shed: one {shed_size}-row request, predicted {pred:.3f} ms, timeout_ms="
+            f"{0.9 * pred:.3f}: PredictedTimeoutError, no launch, shed_predicted=1")
+        for rep in range(3):
+            for n in served_sizes:
+                serve(adm, (n,) * 4, 100 * rep)
+        wide_sys = [system(wide[1], 500 + i, np.float64) for i in range(wide[0])]
+        for rep in range(3):  # a miss, a capture, a replay
+            futs = [adm.submit(SolveRequest(20_000 + i, *s[:4])) for i, s in enumerate(wide_sys)]
+            for f, s in zip(futs, wide_sys):
+                assert_allclose_by_dtype(f.result(timeout=300), s[4], np.float64)
+        obs = adm.telemetry.snapshot()
+        per_batch = adm.stats["per_batch"]
+    assert all(pb["layout"] == "interleaved" and pb["systems"] == wide[0] for pb in per_batch[-3:]), per_batch
+    groups: Dict[Tuple[int, ...], List[Any]] = {}
+    for o in obs:
+        groups.setdefault(o.sizes, []).append(o)
+    for sizes, group in sorted(groups.items()):
+        log(f"  (c) deadline-free {len(sizes)} x {sizes[0]} ({group[0].layout}, chunks="
+            f"{group[0].num_chunks}): latency_ms {[round(o.latency_ms, 3) for o in group]}, "
+            f"predicted_ms={group[0].predicted_ms:.3f}, median residual_ms="
+            f"{statistics.median(o.residual_ms for o in group):.3f}")
+    seconds["(c) admission"] = time.perf_counter() - t2
+
+    launches = {name: LAUNCH_COUNTERS[name].count for name in CLOSED_LOOP_KERNELS}
+    log(f"  launch counts on the closed-loop path (by the wrappers): {launches}; replayed: "
+        f"{ {name: LAUNCH_COUNTERS[name].replayed for name in CLOSED_LOOP_KERNELS} }")
+    if on_card:
+        for name, count in launches.items():
+            assert count > 0, f"kernel {name} was never launched on the closed-loop path"
+    clear_executable_cache()
+    log("  closed_loop seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return launches
+
+
 # ----------------------------------------------------------------------- lm --
 def lm_phase(dev: torch.device) -> Dict[str, int]:
     """The LM serving path on the card; returns the SSD kernel's launches."""
@@ -2012,6 +2245,13 @@ def main() -> int:
         t0 = time.perf_counter()
         breakdown_phase(dev)
         log(f"breakdown: {time.perf_counter() - t0:.1f} s")
+    closed_loop: Dict[str, int] = {}
+    if "closed_loop" in phases:
+        log("closed_loop: staged chunk campaigns, a live refit from served telemetry and "
+            "predicted-latency admission (fp64, m=10, backend='cuda')")
+        t0 = time.perf_counter()
+        closed_loop = closed_loop_phase(dev)
+        log(f"closed_loop: {time.perf_counter() - t0:.1f} s")
     if "lm" in phases:
         log(f"lm: {LM_ARCH} through repro_torch.launch.serve (Model.prefill/decode_step, "
             f"ssd_scan_kernel)")
@@ -2022,6 +2262,7 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]
         row["replayed_launches"] = REPLAYED.get(row["name"].split("/")[0])
+        row["closed_loop_launches"] = closed_loop.get(row["name"].split("/")[0])
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,18 @@ queue (:class:`QueueFullError`); a request may carry ``timeout_ms`` and
 dispatch failure fails exactly that batch's futures, and a worker that dies
 fails every outstanding future with :class:`WorkerDiedError`.
 
+The closed loop (:mod:`repro_torch.telemetry`): with ``autotune`` other
+than ``"off"`` or ``max_predicted_ms`` set, every served batch is recorded as
+a :class:`~repro_torch.telemetry.BatchObservation` in ``session.telemetry``;
+the worker refits the chunk heuristic and a
+:class:`~repro_torch.core.streams.timemodel.LatencyModel` from them on its
+idle time (``"live"`` swaps the refit policy in, ``"shadow"`` only counts
+agreement), and predicted-latency admission packs batches up to
+``max_predicted_ms`` and sheds a request whose predicted solve would end past
+its deadline (:class:`PredictedTimeoutError`).
+
 Not in this port yet (``validate()`` raises ``NotImplementedError`` naming
-the ROADMAP item): the device mesh, closed-loop autotune and
-predicted-latency admission.
+the ROADMAP item): the device mesh.
 
 Usage::
 
@@ -91,13 +100,17 @@ from repro_torch.core.tridiag.plan import (
     set_plan_cache_capacity,
 )
 from repro_torch.core.tridiag.ragged import System, fuse_ragged, split_ragged
+from repro_torch.core.streams.timemodel import LatencyModel
 from repro_torch.device import resolve_device
+from repro_torch.telemetry.refit import AUTOTUNE_MODES, OnlineRefitter
+from repro_torch.telemetry.ring import BatchObservation, TelemetryBuffer
 
 __all__ = [
     "AUTOTUNE_MODES",
     "AdmissionPolicy",
     "DISPATCH_MODES",
     "LAYOUTS",
+    "PredictedTimeoutError",
     "QueueFullError",
     "RequestCancelledError",
     "RequestTimedOutError",
@@ -112,8 +125,6 @@ __all__ = [
 
 #: Valid ``SolverConfig.dispatch`` values (as in the reference).
 DISPATCH_MODES = ("staged", "fused", "auto")
-#: Valid ``SolverConfig.autotune`` values (as in the reference).
-AUTOTUNE_MODES = ("off", "shadow", "live")
 
 
 # ------------------------------------------------------------- typed errors --
@@ -135,6 +146,14 @@ class RequestTimedOutError(ServingError):
 class RequestCancelledError(ServingError):
     """The request was removed from the queue by ``SolveFuture.cancel()``
     before its batch was taken."""
+
+
+class PredictedTimeoutError(RequestTimedOutError):
+    """Predicted-latency admission shed the request before dispatch: the
+    active :class:`~repro_torch.core.streams.timemodel.LatencyModel`
+    predicted that even a solo solve would end past the request's
+    ``timeout_ms`` deadline. A :class:`RequestTimedOutError`, so
+    deadline-aware callers need no new handler."""
 
 
 class WorkerDiedError(ServingError):
@@ -236,10 +255,20 @@ class SolverConfig:
                    unbounded).
     ``plan_cache_capacity``
                    resize the process-wide plan LRU at session construction.
-    ``autotune`` / ``telemetry_capacity`` / ``refit_min_samples`` /
-    ``refit_interval_s`` / ``max_predicted_ms``
-                   the reference's closed-loop knobs: validated as there, but
-                   only their defaults run in the port.
+    ``autotune``   ``"off"``, ``"shadow"`` (refit and count the refit's
+                   would-be picks against the active ones) or ``"live"``
+                   (swap the refit chunk policy in).
+    ``telemetry_capacity``
+                   observations the session keeps (0 disables collection;
+                   autotune needs it > 0). Collection is on iff autotune is
+                   not ``"off"`` or ``max_predicted_ms`` is set.
+    ``refit_min_samples`` / ``refit_interval_s``
+                   a refit runs once this many observations are buffered
+                   and the last attempt is this old.
+    ``max_predicted_ms``
+                   predicted-latency admission: pack each batch to this
+                   predicted latency and shed requests whose predicted solve
+                   would end past their deadline (None disables it).
     """
 
     m: int = 10
@@ -337,31 +366,29 @@ class SolverConfig:
             )
         if self.autotune not in AUTOTUNE_MODES:
             raise ValueError(
-                f"autotune={self.autotune!r}: must be one of {sorted(AUTOTUNE_MODES)}"
+                f"autotune={self.autotune!r}: must be one of "
+                f"{sorted(AUTOTUNE_MODES)} ('shadow' reports would-be refit "
+                f"picks, 'live' swaps them in)"
             )
-        if self.autotune != "off":
-            raise _not_ported("autotune", self.autotune, "Queue 1, closed loop")
         if self.telemetry_capacity < 0:
             raise ValueError(
-                f"telemetry_capacity={self.telemetry_capacity}: must be >= 0"
+                f"telemetry_capacity={self.telemetry_capacity}: must be "
+                f">= 0 (0 disables collection)"
+            )
+        if self.autotune != "off" and self.telemetry_capacity == 0:
+            raise ValueError(
+                f"autotune={self.autotune!r} needs telemetry to refit from; "
+                f"set telemetry_capacity >= refit_min_samples "
+                f"(got telemetry_capacity=0)"
             )
         if self.refit_min_samples < 1:
             raise ValueError(f"refit_min_samples={self.refit_min_samples}: must be >= 1")
         if self.refit_interval_s < 0:
             raise ValueError(f"refit_interval_s={self.refit_interval_s}: must be >= 0")
-        # Nothing in the port reads these yet: a non-default value would
-        # silently do nothing.
-        for name in ("telemetry_capacity", "refit_min_samples", "refit_interval_s"):
-            if getattr(self, name) != _DEFAULTS[name]:
-                raise _not_ported(name, getattr(self, name), "Queue 1, closed loop")
-        if self.max_predicted_ms is not None:
-            if self.max_predicted_ms <= 0:
-                raise ValueError(
-                    f"max_predicted_ms={self.max_predicted_ms}: must be > 0 "
-                    f"(None disables predicted-latency admission)"
-                )
-            raise _not_ported(
-                "max_predicted_ms", self.max_predicted_ms, "Queue 1, predicted admission"
+        if self.max_predicted_ms is not None and self.max_predicted_ms <= 0:
+            raise ValueError(
+                f"max_predicted_ms={self.max_predicted_ms}: must be > 0 "
+                f"(None disables predicted-latency admission)"
             )
         return self
 
@@ -377,9 +404,6 @@ class SolverConfig:
             max_wait_ms=self.max_wait_ms,
             allow_ragged=self.allow_ragged,
         )
-
-
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(SolverConfig)}
 
 
 # ------------------------------------------------------------------- future --
@@ -480,6 +504,14 @@ class SolveEngine:
     dispatch does can escape: any failure resolves exactly the affected
     requests. ``clock`` is injectable so deadline tests can drive virtual
     time.
+
+    Closed loop: with a ``telemetry`` buffer, every dispatch records one
+    :class:`~repro_torch.telemetry.BatchObservation`. With a latency model
+    installed (:meth:`set_latency_model`) each observation carries the
+    model's prediction, and with ``max_predicted_ms`` set as well, admission
+    sheds requests whose predicted solve would end past their deadline
+    (:meth:`shed_unmeetable`) and trims each batch to the budget
+    (:meth:`_pack_by_budget`).
     """
 
     def __init__(
@@ -495,6 +527,8 @@ class SolveEngine:
         clock: Callable[[], float] = time.perf_counter,
         dtype: Any = None,
         max_queue: Optional[int] = None,
+        telemetry: Optional[TelemetryBuffer] = None,
+        max_predicted_ms: Optional[float] = None,
     ) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue={max_queue}: must be >= 1 (or None)")
@@ -509,6 +543,11 @@ class SolveEngine:
         self._executor = executor
         self._on_result = on_result
         self._on_error = on_error
+        # The latency model rides behind _stats_lock: the worker swaps it
+        # (refits) while _dispatch and shed_unmeetable read it.
+        self.telemetry = telemetry
+        self.max_predicted_ms = max_predicted_ms
+        self._latency_model: Optional[LatencyModel] = None
         self._queue: List[_Pending] = []
         self._seq = 0
         # The queue is serialised by the owner (the session's lock), but
@@ -524,8 +563,83 @@ class SolveEngine:
             "timed_out": 0,
             "cancelled": 0,
             "failed": 0,
+            "shed_predicted": 0,
             "queue_high_water": 0,
         }
+
+    # -- predicted-latency admission -----------------------------------------
+    def set_latency_model(self, model: Optional[LatencyModel]) -> None:
+        """Install (or clear) the latency model admission prices batches
+        with: the session calls it when a refit lands."""
+        with self._stats_lock:
+            self._latency_model = model
+
+    def latency_model(self) -> Optional[LatencyModel]:
+        with self._stats_lock:
+            return self._latency_model
+
+    def predicted_batch_ms(self, sizes: Sequence[int]) -> Optional[float]:
+        """Predicted dispatch latency of a batch of ``sizes`` under the
+        current chunk pricing; None while no model is installed."""
+        model = self.latency_model()
+        if model is None or not sizes:
+            return None
+        sizes = tuple(sizes)
+        return model.predict_ms(effective_size(sizes), self.pick_chunks_ragged(sizes))
+
+    def shed_unmeetable(self, now: Optional[float] = None) -> int:
+        """Shed every queued request whose deadline is predicted blown: if
+        ``now`` plus the predicted latency of the request alone passes its
+        expiry, even an immediate solo dispatch would end late, so it fails
+        now with :class:`PredictedTimeoutError`. Needs ``max_predicted_ms``
+        and a latency model; returns how many were shed."""
+        if self.max_predicted_ms is None or not self._queue or self.latency_model() is None:
+            return 0
+        now = self._clock() if now is None else now
+        live: List[_Pending] = []
+        doomed: List[_Pending] = []
+        for p in self._queue:
+            if p.expiry is None:
+                live.append(p)
+                continue
+            pred = self.predicted_batch_ms((p.req.size,))
+            if pred is not None and now + pred / 1e3 > p.expiry:
+                doomed.append(p)
+            else:
+                live.append(p)
+        if not doomed:
+            return 0
+        self._queue = live
+        with self._stats_lock:
+            self.stats["shed_predicted"] += len(doomed)
+            self.stats["timed_out"] += len(doomed)
+        for p in doomed:
+            err = PredictedTimeoutError(
+                f"request {p.req.rid} shed before dispatch: predicted solve "
+                f"latency would end past its timeout_ms={p.req.timeout_ms} "
+                f"deadline (predicted-latency admission, max_predicted_ms="
+                f"{self.max_predicted_ms})"
+            )
+            try:
+                self._on_error(p.req.rid, err)
+            except Exception:
+                pass  # an error channel that raises must not kill serving
+        return len(doomed)
+
+    def _pack_by_budget(self, take: List[_Pending]) -> Tuple[List[_Pending], List[_Pending]]:
+        """Trim an admitted group to the ``max_predicted_ms`` budget: the
+        longest prefix whose predicted latency fits, and never fewer than
+        one request (a solo request over budget must still run, or it would
+        starve). Returns ``(take, deferred)``, both in admission order."""
+        if self.max_predicted_ms is None or len(take) <= 1 or self.latency_model() is None:
+            return take, []
+        kept = len(take)
+        while kept > 1:
+            pred = self.predicted_batch_ms(tuple(p.req.size for p in take[:kept]))
+            if pred is None or pred <= self.max_predicted_ms:
+                break
+            kept -= 1
+        return take[:kept], take[kept:]
 
     # -- scheduling ----------------------------------------------------------
     def submit(self, req: SolveRequest) -> None:
@@ -654,8 +768,10 @@ class SolveEngine:
 
     def take_due_group(self, now: float) -> Optional[List[_Pending]]:
         """Pop the next admissible batch (max_batch reached or deadline
-        expired), or None. Expired requests are shed first."""
+        expired), or None. Expired requests are shed first, then those
+        whose deadline is predicted blown."""
         self.shed_expired(now)
+        self.shed_unmeetable(now)
         if self._queue and (
             len(self._queue) >= self.admission.max_batch or self._deadline_expired(now)
         ):
@@ -665,7 +781,11 @@ class SolveEngine:
     def _take_group(self) -> List[_Pending]:
         q = self._queue
         if self.admission.allow_ragged:
-            take, self._queue = q[: self.max_batch], q[self.max_batch :]
+            take, rest = q[: self.max_batch], q[self.max_batch :]
+            # The deferred suffix is a contiguous run of the sorted queue,
+            # so putting it back in front keeps the admission order.
+            take, deferred = self._pack_by_budget(take)
+            self._queue = deferred + rest
             return take
         # Size-segregated: only the head request's size-mates ride.
         size0 = q[0].req.size
@@ -675,8 +795,34 @@ class SolveEngine:
                 take.append(p)
             else:
                 rest.append(p)
+        take, deferred = self._pack_by_budget(take)
+        for p in deferred:
+            bisect.insort(rest, p, key=lambda p: p.sort_key)
         self._queue = rest
         return take
+
+    def poll(self, now: Optional[float] = None) -> int:
+        """Dispatch every batch an admission trigger lets go (max_batch or
+        the deadline); returns how many were dispatched. Results go to the
+        callbacks. The session's worker does this itself; ``poll`` drives
+        an engine without one."""
+        now = self._clock() if now is None else now
+        dispatched = 0
+        while (group := self.take_due_group(now)) is not None:
+            self._dispatch(group, now)
+            dispatched += 1
+        return dispatched
+
+    def flush(self) -> int:
+        """Dispatch everything pending (expired requests are shed first);
+        returns how many batches were dispatched."""
+        now = self._clock()
+        self.shed_expired(now)
+        dispatched = 0
+        while self._queue:
+            self._dispatch(self._take_group(), now)
+            dispatched += 1
+        return dispatched
 
     def _fail_group(self, reqs: Sequence[SolveRequest], e: BaseException) -> None:
         """Fail every request in ``reqs`` via ``on_error``."""
@@ -691,7 +837,12 @@ class SolveEngine:
     def _dispatch(self, group: List[_Pending], now: float) -> None:
         """Solve one admitted batch and deliver its results. Everything in
         here is guarded: a failure fails exactly the affected requests via
-        ``on_error`` and returns normally, so the worker keeps serving."""
+        ``on_error`` and returns normally, so the worker keeps serving.
+
+        The latency spans the fuse, the solve and the copy of the solution
+        to the host; that copy (``.cpu()`` inside ``executor.execute``)
+        waits for the device, so the latency a batch records and its
+        telemetry observation include the device's work."""
         reqs = [p.req for p in group]
         t0 = time.perf_counter()
         try:
@@ -699,12 +850,18 @@ class SolveEngine:
             dl, d, du, b, sizes = fuse_ragged(
                 [(r.dl, r.d, r.du, r.b) for r in reqs], device=self._executor.operand_device
             )
-            policy = self.policy  # one read: this batch is priced by one policy
+            # One read of the policy: a live refit swaps it between
+            # dispatches, and this batch is priced and recorded by one.
+            policy = self.policy
             if policy is not None:
                 plan = build_plan(sizes, self.m, policy=policy)
             else:
                 plan = build_plan(sizes, self.m, num_chunks=self.pick_chunks_ragged(sizes))
             layout = self._executor.resolved_layout(plan)
+            model = self.latency_model()
+            predicted_ms = (
+                None if model is None else model.predict_ms(effective_size(sizes), plan.num_chunks)
+            )
             x, _ = self._executor.execute(plan, dl, d, du, b)
             # copy: split_ragged returns views, which would pin the whole
             # fused solution for as long as any one result is retained
@@ -730,6 +887,26 @@ class SolveEngine:
                         "max_wait_ms": float(np.max(waits_ms)),
                     }
                 )
+            if self.telemetry is not None and self.telemetry.enabled:
+                # Guarded on its own: a recording failure must not fail a
+                # solved batch.
+                try:
+                    self.telemetry.record(
+                        BatchObservation(
+                            t=now,
+                            sizes=sizes,
+                            num_chunks=plan.num_chunks,
+                            backend=self._executor.backend.name,
+                            layout=layout,
+                            dispatch="staged" if isinstance(self._executor, PlanExecutor) else "fused",
+                            latency_ms=dt * 1e3,
+                            mean_wait_ms=float(np.mean(waits_ms)),
+                            max_wait_ms=float(np.max(waits_ms)),
+                            predicted_ms=predicted_ms,
+                        )
+                    )
+                except Exception:
+                    pass
         except Exception as e:
             self._fail_group(reqs, e)
             return
@@ -766,9 +943,21 @@ class TridiagSession:
 
     Constructing a session for ``device="cuda"`` where torch sees no CUDA
     device raises ``RuntimeError``.
+
+    The closed loop: :attr:`telemetry` records every served batch when
+    ``autotune`` is not ``"off"`` or ``max_predicted_ms`` is set. The worker
+    refits on its idle time, outside the lock (:meth:`_maybe_refit`): the
+    latency model always, the chunk policy in ``"live"`` mode, swapped
+    under the lock so :meth:`plan_for` and the engine see the old policy or
+    the new one. ``refitter=`` injects a refitter (a fake clock for tests).
     """
 
-    def __init__(self, config: Optional[SolverConfig] = None) -> None:
+    def __init__(
+        self,
+        config: Optional[SolverConfig] = None,
+        *,
+        refitter: Optional[OnlineRefitter] = None,
+    ) -> None:
         self.config = (SolverConfig() if config is None else config).validate()
         self.device = resolve_device(self.config.device)
         self.backend = resolve_backend(self.config.backend, self.device)
@@ -783,6 +972,25 @@ class TridiagSession:
         self._worker: Optional[threading.Thread] = None
         self._closed = False
         self._worker_error: Optional[BaseException] = None
+        # Telemetry is on iff something reads it (a refitter, or predicted
+        # admission); otherwise the ring has capacity 0 and records nothing.
+        telemetry_on = self.config.autotune != "off" or self.config.max_predicted_ms is not None
+        self._telemetry = TelemetryBuffer(
+            capacity=self.config.telemetry_capacity if telemetry_on else 0
+        )
+        if refitter is not None:
+            self._refitter: Optional[OnlineRefitter] = refitter
+        elif self.config.autotune != "off":
+            self._refitter = OnlineRefitter(
+                mode=self.config.autotune,
+                min_samples=self.config.refit_min_samples,
+                interval_s=self.config.refit_interval_s,
+            )
+        else:
+            self._refitter = None
+        # The chunk policy pricing dispatches: the config's until a live
+        # refit swaps it (under _cv). plan_for and the engine read this.
+        self._active_policy = self.config.policy
         self._engine = SolveEngine(
             executor=self._staged if self.config.dispatch == "staged" else self._fused,
             on_result=lambda rid, x: self._resolve_future(rid, value=x),
@@ -793,13 +1001,19 @@ class TridiagSession:
             admission=self.config.admission(),
             dtype=self.config.dtype,
             max_queue=self.config.max_queue,
+            telemetry=self._telemetry,
+            max_predicted_ms=self.config.max_predicted_ms,
         )
 
     # -- planning ------------------------------------------------------------
     def plan_for(self, sizes: Sizes) -> SolvePlan:
-        """The plan this session executes for ``sizes`` (int or sequence)."""
-        if self.config.policy is not None:
-            return build_plan(sizes, self.config.m, policy=self.config.policy)
+        """The plan this session executes for ``sizes`` (int or sequence),
+        priced by the active chunk policy: the config's, until a live refit
+        swaps in the one fitted from telemetry."""
+        with self._cv:
+            policy = self._active_policy
+        if policy is not None:
+            return build_plan(sizes, self.config.m, policy=policy)
         return build_plan(sizes, self.config.m, num_chunks=self.config.num_chunks or 1)
 
     def _cast(self, *arrays: Any) -> Tuple[Any, ...]:
@@ -959,16 +1173,52 @@ class TridiagSession:
         if fut is not None:
             fut._resolve(value, error)
 
-    def _serve_loop(self) -> None:
-        """Worker: dispatch due batches, sleep exactly until the next trigger.
+    # -- closed loop ---------------------------------------------------------
+    @property
+    def telemetry(self) -> TelemetryBuffer:
+        """The session's per-batch observation ring (capacity 0, recording
+        nothing, unless ``autotune`` or ``max_predicted_ms`` turned it on)."""
+        return self._telemetry
 
-        The lock is held only for queue surgery; each solve runs outside it,
-        so submits keep enqueuing while a batch is in flight. An escape the
+    def _refit_wait_s(self) -> Optional[float]:
+        """How long the idle worker may sleep before a refit could be due;
+        None without a refitter or below its sample threshold (a dispatch
+        wakes the worker anyway)."""
+        if self._refitter is None:
+            return None
+        return self._refitter.seconds_until_due(len(self._telemetry))
+
+    def _maybe_refit(self) -> None:
+        """One idle-time refit step, on the worker thread outside the lock:
+        refit if due, then install the latency model (every mode) and, when
+        the refitter made one (live mode), swap the chunk policy under the
+        lock."""
+        if self._refitter is None:
+            return
+        result = self._refitter.maybe_refit(
+            self._telemetry, pick_active=self._engine.pick_chunks_ragged
+        )
+        if result is None:
+            return
+        if result.latency_model is not None:
+            self._engine.set_latency_model(result.latency_model)
+        if result.policy is not None:
+            with self._cv:
+                self._active_policy = result.policy
+                self._engine.policy = result.policy
+
+    def _serve_loop(self) -> None:
+        """Worker: refit when due, dispatch due batches, sleep exactly until
+        the next trigger.
+
+        The lock is held only for queue surgery; each solve and each refit
+        runs outside it, so submits keep enqueuing meanwhile. An escape the
         engine could not attribute to one batch fails every outstanding
         future with :class:`WorkerDiedError` before the thread exits.
         """
         try:
             while True:
+                self._maybe_refit()
                 with self._cv:
                     now = self._engine._clock()
                     group = self._engine.take_due_group(now)
@@ -979,7 +1229,12 @@ class TridiagSession:
                                 return
                             group = self._engine._take_group()  # drain mode
                         else:
-                            self._cv.wait(timeout=self._engine.seconds_to_next_event(now))
+                            ticks = [
+                                t
+                                for t in (self._engine.seconds_to_next_event(now), self._refit_wait_s())
+                                if t is not None
+                            ]
+                            self._cv.wait(timeout=min(ticks) if ticks else None)
                             continue
                 try:
                     self._engine._dispatch(group, now)  # futures resolve in here
@@ -1009,10 +1264,13 @@ class TridiagSession:
     @property
     def stats(self) -> Dict[str, Any]:
         """A consistent snapshot: the engine's dispatch aggregates and
-        load-shedding counters, queue occupancy (``queue_depth``,
-        ``queue_high_water``, ``unresolved``), the process-wide
-        ``plan_cache`` and ``executable_cache`` counters and the session's
-        ``device``."""
+        load-shedding counters (``shed_predicted`` among them), queue
+        occupancy (``queue_depth``, ``queue_high_water``, ``unresolved``),
+        the process-wide ``plan_cache`` and ``executable_cache`` counters,
+        the session's ``device`` and ``backend``, and the closed loop's
+        ``autotune`` block: the refitter's counters (attempts, refits,
+        errors, last refit's age and samples, pick agreement) and the
+        telemetry ring's ``observations`` counts."""
         with self._cv:
             snap = self._engine.stats_snapshot()
             snap["unresolved"] = len(self._futures)
@@ -1020,6 +1278,11 @@ class TridiagSession:
         snap["executable_cache"] = executable_cache_stats()
         snap["device"] = str(self.device)
         snap["backend"] = self.backend.name
+        autotune: Dict[str, Any] = (
+            self._refitter.stats_snapshot() if self._refitter is not None else {"mode": "off"}
+        )
+        autotune["observations"] = self._telemetry.counters()
+        snap["autotune"] = autotune
         return snap
 
     def close(self) -> None:

@@ -20,6 +20,19 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
+REFITTER_STATE = (
+    "_last_attempt_t",
+    "_last_refit_t",
+    "_attempts",
+    "_refits",
+    "_errors",
+    "_agree",
+    "_disagree",
+    "_last_samples",
+    "_last_heuristic",
+    "_last_latency_model",
+)
+
 PORT_REGISTRY = Registry(
     guarded_globals=(
         GuardedGlobals(
@@ -48,16 +61,34 @@ PORT_REGISTRY = Registry(
         GuardedAttrs(
             module="repro_torch/core/tridiag/api.py",
             owner="SolveEngine",
-            attrs=("stats",),
+            attrs=("stats", "_latency_model"),
             guards=("_stats_lock",),
             allow_in=("SolveEngine.__init__",),
         ),
         GuardedAttrs(
             module="repro_torch/core/tridiag/api.py",
             owner="TridiagSession",
-            attrs=("_futures", "_worker", "_closed", "_worker_error"),
+            attrs=("_futures", "_worker", "_closed", "_worker_error", "_active_policy"),
             guards=("_cv",),
             allow_in=("TridiagSession.__init__",),
+        ),
+        # The ring is written from the serving hot path and read by the
+        # refitter and exporters on other threads.
+        GuardedAttrs(
+            module="repro_torch/telemetry/ring.py",
+            owner="TelemetryBuffer",
+            attrs=("_ring", "_recorded", "_dropped"),
+            guards=("_lock",),
+            allow_in=("TelemetryBuffer.__init__",),
+        ),
+        # Read by stats_snapshot()/last_heuristic() from any thread while
+        # the serve worker refits; the fits run outside the lock.
+        GuardedAttrs(
+            module="repro_torch/telemetry/refit.py",
+            owner="OnlineRefitter",
+            attrs=REFITTER_STATE,
+            guards=("_lock",),
+            allow_in=("OnlineRefitter.__init__",),
         ),
     ),
 )
@@ -78,7 +109,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys, repro_torch, repro_torch.api, repro_torch.kernels, "
         "repro_torch.core.autotune.convert, repro_torch.core.streams, "
         "repro_torch.launch.serve, repro_torch.models.registry, "
-        "repro_torch.models.convert, repro_torch.kernels.ssd_stage1, repro_torch.serve\n"
+        "repro_torch.models.convert, repro_torch.kernels.ssd_stage1, repro_torch.serve, "
+        "repro_torch.telemetry, repro_torch.core.streams.measure\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -96,6 +128,41 @@ def test_port_sources_import_no_jax_and_no_jax_package(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+
+
+def test_telemetry_imports_first_in_a_fresh_interpreter():
+    """The telemetry package imports the plan layer and never the session,
+    so it works as the first import (no import-order cycle)."""
+    code = (
+        "import repro_torch.telemetry as t, sys\n"
+        "assert 'repro_torch.core.tridiag.api' not in sys.modules\n"
+        "from repro_torch.api import TridiagSession\n"
+        "assert t.OnlineRefitter and TridiagSession\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "module,owner,attr",
+    [("repro_torch/core/tridiag/api.py", "SolveEngine", "_latency_model"),
+     ("repro_torch/core/tridiag/api.py", "TridiagSession", "_active_policy"),
+     ("repro_torch/telemetry/ring.py", "TelemetryBuffer", "_ring"),
+     ("repro_torch/telemetry/refit.py", "OnlineRefitter", "_last_heuristic")],
+)
+def test_port_registry_covers_the_closed_loop(module, owner, attr):
+    found = check_source(
+        f"class {owner}:\n    def peek(self):\n        return self.{attr}\n",
+        f"src/{module}",
+        registry=PORT_REGISTRY,
+        select=["TRD001"],
+    )
+    assert [v.code for v in found] == ["TRD001"]
 
 
 def test_session_asks_for_the_card_by_default_and_names_cuda():
