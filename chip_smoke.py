@@ -105,7 +105,30 @@ Phases:
    prediction is shed with ``PredictedTimeoutError`` and no launch; then
    deadline-free batches (32 x 10,000 among them, interleaved) print their
    median residuals. The six solver kernels' launch counts must rise.
-6. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
+6. ``mesh``: the multi-device solve on four logical shards of one card,
+   ``TridiagSession(SolverConfig(mesh=("cuda:0",) * 4, backend="cuda"))``
+   at m = 10, fp64 unless named: ``solve`` at n = 1e7 with
+   ``FixedChunkPolicy(8)`` and with the shipped heuristic,
+   ``solve_batched`` at 64 x 100,000 (system-major: 16 lanes a shard) and
+   at 1024 x 10,000 in fp64 and fp32 (interleaved, 256 lanes a shard),
+   ``solve_many`` of 48 ragged systems of 10,000 ... 400,000, 16 served
+   ``submit`` requests, and n = 1e7 + 10, whose 1,000,001 blocks snap the
+   plan to one shard. Each case must raise the launch counts by one
+   sharded set (Stage 1 and Stage 3 once a chunk, the reduced solve once a
+   shard; the wide stages once a lane shard), meet ``x_true`` at the
+   ladder, and give, through the sharded executor, the bits of the
+   unsharded executor on the same plan (system-major; interleaved within
+   the ladder, the bits printed); it prints CUDA-event times of the two
+   executors in turn (both eager, and against the unsharded graph replay)
+   and host-clock times of the sharded and the unsharded session's verb.
+   Then the device time the replicated reduced solves add (the reduced
+   solve's device time, and the profiler's device busy time of the
+   sharded against the unsharded n = 1e7 call with its device kernels),
+   ``stats()["mesh"]``, one executable-cache entry each for 4, 2 and no
+   shards with the same bits, and ``mesh="auto"`` over every card where
+   more than one is visible (else it prints that it skipped). All shards
+   share one card: no multi-card time is taken.
+7. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
    (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
    and 4 greedy decode steps on the card (the SSD kernel) against the same
@@ -156,7 +179,7 @@ PROFILE_ATTEMPTS = 5
 # incomplete trace.
 PROFILE_PAD = 64
 M = 10
-ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "lm")
+ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
@@ -2001,6 +2024,260 @@ def closed_loop_phase(dev: torch.device, campaign_sizes: Optional[Tuple[int, ...
 
 
 # ----------------------------------------------------------------------- lm --
+MESH_SHARDS = 4
+MESH_KERNELS = MAIN_KERNELS[:6]
+
+
+def flat(x: Any) -> np.ndarray:
+    """A verb's answer as one fused vector: a list of systems concatenated,
+    a (B, n) batch flattened."""
+    return np.concatenate(x) if isinstance(x, list) else np.asarray(x).reshape(-1)
+
+
+def alternating_host_ms(fns: List[Callable[[], Any]], reps: int) -> List[float]:
+    """Median host-clock time (``host_ms``) of each of ``fns``, called in
+    turn rep after rep, after one call of each."""
+    for fn in fns:
+        fn()
+    times: List[List[float]] = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            ts.append(host_ms(fn, reps=1))
+    return [statistics.median(ts) for ts in times]
+
+
+def mesh_case(dev: torch.device, label: str, sharded: Any, unsharded: Any,
+              verb: Callable[[Any], Any], sizes: Tuple[int, ...], fused: List[np.ndarray],
+              x_true: np.ndarray, np_dtype: Any, reps: int = 3) -> Dict[str, Any]:
+    """One case of the mesh phase: the sharded session's ``verb`` must
+    raise the launch counts by one sharded set (Stage 1 and Stage 3 once a
+    chunk and the reduced solve once a shard, or the three wide stages once
+    a lane shard) and meet the fp64 oracle at the ladder; the sharded
+    executor on the fused operands (on the card) must give the verb's bits,
+    and the unsharded executor on the same plan the same bits
+    (system-major) or an answer within the ladder (interleaved, the bits
+    printed). Then the device path alone (the stages on the card's
+    operands, no copy to the host), sharded and unsharded: CUDA events in
+    turn and the card's time (``device_ms``); the host clock around the
+    sharded and the unsharded session's verb in turn (the unsharded one on
+    its own plan), both eager (the cache at capacity 0); and events around
+    the sharded executor against the unsharded one's CUDA graph replay."""
+    from functools import partial
+
+    from repro_torch.api import FusedExecutor, set_executable_cache_capacity
+    from repro_torch.core.tridiag import plan as plan_mod
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+
+    plan = sharded.plan_for(sizes)
+    layout = sharded._fused.resolved_layout(plan)
+    devices = sharded._fused.shard_devices(plan, layout)
+    shards = 1 if devices is None else len(devices)
+    if layout == "interleaved":
+        want = {"partition_stage1_wide": shards, "thomas_wide": shards, "partition_stage3_wide": shards}
+    else:
+        want = {"partition_stage1": plan.num_chunks, "thomas": shards, "partition_stage3": plan.num_chunks}
+    x, rose = launches_of(lambda: verb(sharded))
+    assert rose == want, (label, rose, want)
+    x = flat(x)
+    assert x.shape == x_true.shape and x.dtype == np_dtype and np.isfinite(x).all(), label
+    assert_allclose_by_dtype(x, x_true, np_dtype)
+
+    ops = [torch.as_tensor(a, device=dev) for a in fused]
+    single = FusedExecutor("cuda", device=dev, layout=layout)
+
+    def run_sharded() -> np.ndarray:
+        return sharded._fused.execute(plan, *ops)[0]
+
+    def run_single() -> np.ndarray:
+        return single.execute(plan, *ops)[0]
+
+    xs, x0 = run_sharded(), run_single()
+    assert np.array_equal(xs, x), f"{label}: the sharded verb and executor differ"
+    bits = bool(np.array_equal(xs, x0))
+    if layout == "system-major":
+        assert bits, f"{label}: sharded and unsharded differ on the same plan"
+    else:
+        assert_allclose_by_dtype(xs, x0, np_dtype)
+    backend = sharded._fused.backend
+    if layout == "interleaved":
+        path_s = partial(plan_mod._fused_interleaved, plan, backend, *ops, devices=devices)
+        path_0 = partial(plan_mod._fused_interleaved, plan, backend, *ops)
+    elif devices is not None:
+        path_s = partial(plan_mod._fused_sharded, plan, backend, devices, *ops)
+        path_0 = partial(plan_mod._fused, plan, backend, *ops)
+    else:
+        path_s = path_0 = partial(plan_mod._fused, plan, backend, *ops)
+    ev_s, ev_0 = alternating_ms([path_s, path_0], reps)
+    dev_s, dev_0 = device_ms(path_s, reps=5), device_ms(path_0, reps=5)
+    set_executable_cache_capacity(0)
+    try:
+        host_s, host_0 = alternating_host_ms([lambda: verb(sharded), lambda: verb(unsharded)], reps)
+    finally:
+        set_executable_cache_capacity(128)
+    run_single(), run_single()  # the unsharded entry: a miss, then the capture
+    ex_s, replay_0 = alternating_ms([run_sharded, run_single], reps)
+    plan0 = unsharded.plan_for(sizes)
+    log(f"  {label}: plan shards={plan.shards} chunks={plan.num_chunks} layout={layout} "
+        f"launches={rose} max_err_vs_x_true={max_err(x, x_true):.3e} "
+        f"bit_identical_to_unsharded_same_plan={bits}")
+    log(f"    device path on card operands, sharded vs unsharded: events in turn {ev_s:.4f} vs "
+        f"{ev_0:.4f} ms, device time {dev_s:.4f} vs {dev_0:.4f} ms; executor with the copy to "
+        f"the host, events in turn: sharded {ex_s:.4f} vs unsharded replay {replay_0:.4f} ms; "
+        f"host clock, verbs from host operands, in turn, both eager: sharded {host_s:.3f} vs "
+        f"unsharded session {host_0:.3f} ms (its own plan: {plan0.num_chunks} chunks, "
+        f"{unsharded._fused.resolved_layout(plan0)})")
+    return {"plan": plan, "layout": layout, "shards": shards, "dev_ms": (dev_s, dev_0),
+            "path_sharded": path_s, "path_single": path_0}
+
+
+def mesh_phase(dev: torch.device) -> Dict[str, int]:
+    """The multi-device solve on ``MESH_SHARDS`` logical shards of one card
+    (``mesh=("cuda:0",) * 4``), ``backend="cuda"``, m = 10: every case
+    through ``mesh_case``, the replicated reduced solves' extra device
+    time, the executable cache's entries for 4, 2 and no shards, and
+    ``mesh="auto"`` where more than one card is visible. Returns the
+    launches of the solver's kernels over the phase."""
+    from repro_torch.api import (
+        FixedChunkPolicy,
+        HeuristicChunkPolicy,
+        SolveRequest,
+        SolverConfig,
+        TridiagSession,
+        clear_executable_cache,
+        executable_cache_stats,
+    )
+    from repro_torch.core.autotune import fit_stream_heuristic
+    from repro_torch.core.streams import StreamSimulator
+    from repro_torch.core.tridiag import plan as plan_mod
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.thomas.ops import thomas_cuda
+    from repro_torch.parallel import mesh_signature, resolve_mesh_devices
+
+    logical = (str(dev),) * MESH_SHARDS
+    heuristic = fit_stream_heuristic(StreamSimulator(seed=1).dataset(reps=2))
+    cfg = SolverConfig(m=M, device=str(dev), backend="cuda", layout="auto", mesh=logical,
+                       policy=HeuristicChunkPolicy(heuristic))
+    big = system(10_000_000, 1, np.float64)
+    odd = system(10_000_010, 7, np.float64)
+    b64 = system(100_000, 3, np.float64, batch=(64,))
+    wide = {np.float64: system(10_000, 6, np.float64, batch=(1024,)),
+            np.float32: system(10_000, 8, np.float32, batch=(1024,))}
+    # 48 ragged sizes of 10,000 ... 400,000 rows, each a multiple of 4·m, so
+    # that the fused block axis splits into 4 shards.
+    many = [system(10_000 + (390_000 * i // 47) // (4 * M) * (4 * M), 500 + i, np.float64)
+            for i in range(48)]
+    served = [system((10_000, 40_000, 50_000, 80_000)[i % 4], 600 + i, np.float64) for i in range(16)]
+    many_sizes = tuple(m[4].size for m in many)
+    served_sizes = tuple(m[4].size for m in served)
+
+    def serve16(session: Any) -> List[np.ndarray]:
+        futs = [session.submit(SolveRequest(i, *s[:4])) for i, s in enumerate(served)]
+        return [f.result(timeout=300) for f in futs]
+
+    def concat(systems: List[Tuple[np.ndarray, ...]]) -> List[np.ndarray]:
+        return [np.concatenate([s[j] for s in systems]) for j in range(5)]
+
+    clear_executable_cache()
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+    cases: Dict[str, Dict[str, Any]] = {}
+    fixed8 = cfg.replace(policy=FixedChunkPolicy(8))
+    with TridiagSession(fixed8) as s, TridiagSession(fixed8.replace(mesh=None)) as s0:
+        want_mesh = {"devices": MESH_SHARDS, "platform": dev.type,
+                     "signature": ((dev.type, dev.index),) * MESH_SHARDS}
+        assert s.stats["mesh"] == want_mesh and s0.stats["mesh"] is None, s.stats["mesh"]
+        log(f"  stats()['mesh'] = {s.stats['mesh']}")
+        cases["solve8"] = mesh_case(dev, "solve n=1e7 fp64 FixedChunkPolicy(8)", s, s0,
+                                    lambda ss: ss.solve(*big[:4]), (big[4].size,), list(big[:4]),
+                                    big[4], np.float64)
+    with TridiagSession(cfg) as s, TridiagSession(cfg.replace(mesh=None)) as s0:
+        mesh_case(dev, "solve n=1e7 fp64 heuristic", s, s0, lambda ss: ss.solve(*big[:4]),
+                  (big[4].size,), list(big[:4]), big[4], np.float64)
+        case = mesh_case(dev, "solve_batched 64x100000 fp64", s, s0,
+                         lambda ss: ss.solve_batched(*b64[:4]), (b64[4].shape[1],) * b64[4].shape[0],
+                         [a.reshape(-1) for a in b64[:4]], b64[4].reshape(-1), np.float64)
+        assert case["layout"] == "system-major", case["layout"]
+        for np_dtype, ops in wide.items():
+            case = mesh_case(dev, f"solve_batched 1024x10000 {np.dtype(np_dtype).name}", s, s0,
+                             lambda ss, ops=ops: ss.solve_batched(*ops[:4]),
+                             (ops[4].shape[1],) * ops[4].shape[0],
+                             [a.reshape(-1) for a in ops[:4]], ops[4].reshape(-1), np_dtype)
+            assert case["layout"] == "interleaved" and case["shards"] == MESH_SHARDS, case["layout"]
+        fused_many = concat(many)
+        mesh_case(dev, "solve_many 48 ragged 10000..400000 fp64", s, s0,
+                  lambda ss: ss.solve_many([m[:4] for m in many]), many_sizes, fused_many[:4],
+                  fused_many[4], np.float64)
+        case = mesh_case(dev, "solve n=1e7+10 fp64 heuristic (1,000,001 blocks)", s, s0,
+                         lambda ss: ss.solve(*odd[:4]), (odd[4].size,), list(odd[:4]), odd[4],
+                         np.float64)
+        assert case["plan"].shards == 1 and case["shards"] == 1, case["plan"].shards
+        assert case["plan"] == s0.plan_for(odd[4].size)
+    served_cfg = cfg.replace(max_batch=16, max_wait_ms=5000.0)
+    with TridiagSession(served_cfg) as s, TridiagSession(served_cfg.replace(mesh=None)) as s0:
+        fused_served = concat(served)
+        mesh_case(dev, "submit x16 10000..80000 fp64", s, s0, serve16, served_sizes,
+                  fused_served[:4], fused_served[4], np.float64)
+        batches = s.stats["per_batch"]
+        assert all(b["systems"] == 16 for b in batches), batches
+
+    # The device time the replicated reduced solves add: each shard solves
+    # all P = n/m reduced rows, so S shards solve them S - 1 times more.
+    sm = cases["solve8"]
+    plan, extra = sm["plan"], MESH_SHARDS - 1
+    red = [torch.as_tensor(a, device=dev) for a in system(plan.num_blocks, 9, np.float64)[:4]]
+    red_ms = device_ms(lambda: thomas_cuda(*red))
+    busy = {}
+    for name in ("sharded", "single"):
+        entries = traced(f"mesh {name} n=1e7 k=8 device path", sm[f"path_{name}"], reps=1)
+        kernels: Dict[str, int] = {}
+        for us, c, k in entries:
+            kernels[k[:60]] = kernels.get(k[:60], 0) + c
+        busy[name] = sum(us for us, _, _ in entries) / 1e3
+        log(f"    profiler, {name} n=1e7 k=8 device path (eager): device busy {busy[name]:.4f} ms; "
+            f"{sum(kernels.values())} device entries: {sorted(kernels.items())}")
+    log(f"  replicated reduced solves, n=1e7 fp64 ({plan.num_blocks} rows, {MESH_SHARDS} logical "
+        f"shards): one reduced solve {red_ms:.4f} ms device time, so {extra} more add "
+        f"{extra * red_ms:.4f} ms; the device path's device time sharded - unsharded "
+        f"{sm['dev_ms'][0] - sm['dev_ms'][1]:.4f} ms; its profiler busy time sharded - unsharded "
+        f"{busy['sharded'] - busy['single']:.4f} ms")
+
+    # One cache entry each for 4 shards, 2 shards and none, the same bits.
+    clear_executable_cache()
+    answers = []
+    for mesh in (logical, logical[:2], None):
+        with TridiagSession(fixed8.replace(mesh=mesh)) as s:
+            answers.append(s.solve(*big[:4]))
+    with plan_mod._CACHE_LOCK:
+        keys = list(plan_mod._EXEC_CACHE)
+    assert executable_cache_stats()["size"] == 3, executable_cache_stats()
+    assert [k[0].shards for k in keys] == [4, 2, 1] and [len(k) for k in keys] == [7, 7, 6], keys
+    assert [k[-1] for k in keys[:2]] == [mesh_signature(resolve_mesh_devices(m))
+                                         for m in (logical, logical[:2])]
+    assert all(np.array_equal(a, answers[0]) for a in answers[1:]), "4, 2 and 1 shards differ"
+    log(f"  executable cache: 3 entries for 4, 2 and no shards (keys end in "
+        f"{keys[0][-1]}, {keys[1][-1]}, unsharded 6-tuple); the three answers bit_identical=True")
+
+    if torch.cuda.device_count() > 1:
+        with TridiagSession(fixed8.replace(mesh="auto")) as s, \
+                TridiagSession(fixed8.replace(mesh=None)) as s0:
+            assert s.stats["mesh"]["devices"] == torch.cuda.device_count()
+            mesh_case(dev, f"solve n=1e7 fp64 mesh='auto' over {torch.cuda.device_count()} cards",
+                      s, s0, lambda ss: ss.solve(*big[:4]), (big[4].size,), list(big[:4]),
+                      big[4], np.float64)
+    else:
+        assert resolve_mesh_devices("auto") is None
+        log("  mesh='auto': skipped, one CUDA device is visible, so it resolves to the "
+            "unsharded path; no multi-card time was taken")
+    clear_executable_cache()
+
+    launches = {name: LAUNCH_COUNTERS[name].count for name in MESH_KERNELS}
+    log(f"  launch counts on the mesh path (by the wrappers): {launches}; replayed from CUDA "
+        f"graphs beside them: { {n: LAUNCH_COUNTERS[n].replayed for n in MESH_KERNELS} }")
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} was never launched on the mesh path"
+    return launches
+
+
 def lm_phase(dev: torch.device) -> Dict[str, int]:
     """The LM serving path on the card; returns the SSD kernel's launches."""
     from repro_torch.kernels import LAUNCH_COUNTERS
@@ -2252,6 +2529,13 @@ def main() -> int:
         t0 = time.perf_counter()
         closed_loop = closed_loop_phase(dev)
         log(f"closed_loop: {time.perf_counter() - t0:.1f} s")
+    mesh: Dict[str, int] = {}
+    if "mesh" in phases:
+        log(f"mesh: TridiagSession(mesh=('{dev}',) * {MESH_SHARDS}), logical shards on one card, "
+            f"backend='cuda', m=10")
+        t0 = time.perf_counter()
+        mesh = mesh_phase(dev)
+        log(f"mesh: {time.perf_counter() - t0:.1f} s")
     if "lm" in phases:
         log(f"lm: {LM_ARCH} through repro_torch.launch.serve (Model.prefill/decode_step, "
             f"ssd_scan_kernel)")
@@ -2263,6 +2547,7 @@ def main() -> int:
         row["launches"] = launches[row["name"].split("/")[0]]
         row["replayed_launches"] = REPLAYED.get(row["name"].split("/")[0])
         row["closed_loop_launches"] = closed_loop.get(row["name"].split("/")[0])
+        row["mesh_launches"] = mesh.get(row["name"].split("/")[0])
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

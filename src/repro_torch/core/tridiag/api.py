@@ -29,8 +29,8 @@ times only the staged path can observe. The operand ``layout``
 (``"system-major"``, ``"interleaved"`` or ``"auto"``, see :mod:`.layout`)
 is resolved per batch exactly as in the reference: ``"auto"`` interleaves
 fused flat batches of at least 32 systems whose ragged padding stays within
-1.5x. Everything runs on the session's device (``SolverConfig.device``,
-``"cuda"`` by default). Verbs take numpy arrays or torch tensors and return
+1.5x (with a mesh, per lane shard). Without a mesh, everything runs on the
+session's device (``SolverConfig.device``, ``"cuda"`` by default). Verbs take numpy arrays or torch tensors and return
 numpy arrays. The caller's operands are never consumed or written to: there
 is no buffer donation.
 
@@ -52,8 +52,12 @@ agreement), and predicted-latency admission packs batches up to
 ``max_predicted_ms`` and sheds a request whose predicted solve would end past
 its deadline (:class:`PredictedTimeoutError`).
 
-Not in this port yet (``validate()`` raises ``NotImplementedError`` naming
-the ROADMAP item): the device mesh.
+The device mesh (``SolverConfig.mesh``): the plain verbs and served batches
+shard over a device list, system-major solves over shard-aligned plans
+(each device one span of blocks, one halo block from the next, the reduced
+rows gathered and the reduced system solved on each device) and interleaved
+batches over their lanes. A device may repeat: ``mesh=("cuda:0",) * 4`` runs
+four logical shards on one card.
 
 Usage::
 
@@ -102,6 +106,7 @@ from repro_torch.core.tridiag.plan import (
 from repro_torch.core.tridiag.ragged import System, fuse_ragged, split_ragged
 from repro_torch.core.streams.timemodel import LatencyModel
 from repro_torch.device import resolve_device
+from repro_torch.parallel.solver import mesh_signature, resolve_mesh_devices, shard_count
 from repro_torch.telemetry.refit import AUTOTUNE_MODES, OnlineRefitter
 from repro_torch.telemetry.ring import BatchObservation, TelemetryBuffer
 
@@ -212,13 +217,6 @@ def _shape(a: Any) -> Tuple[int, ...]:
     return tuple(a.shape) if hasattr(a, "shape") else np.shape(a)
 
 
-def _not_ported(field_: str, value: object, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{field_}={value!r} is not in the port yet (ROADMAP: {item}); the port "
-        f"serves the fused and staged solves, in either layout, on one device"
-    )
-
-
 # ------------------------------------------------------------------- config --
 @dataclass(frozen=True)
 class SolverConfig:
@@ -236,7 +234,8 @@ class SolverConfig:
                    PyTorch stages on the CPU), ``"cuda"``, ``"reference"``,
                    or a ``StageBackend``.
     ``device``     ``"cuda"`` (default) or ``"cpu"``; a session asking for
-                   CUDA where there is none raises ``RuntimeError``.
+                   CUDA where there is none raises ``RuntimeError``. With a
+                   mesh, the fused path runs on the mesh's devices instead.
     ``dispatch``   ``"fused"`` (the whole solve on the device), ``"staged"``
                    (per-chunk streams, host reduced solve, phase times) or
                    ``"auto"``: fused for the plain verbs and served batches,
@@ -245,7 +244,19 @@ class SolverConfig:
                    ``"interleaved"`` (systems on the fastest axis; flat
                    fused batches only) or ``"auto"``, which interleaves fused
                    batches of B >= 32 systems with padding waste <= 1.5x.
-    ``mesh``       None only (the mesh is not ported yet).
+    ``mesh``       the devices the fused path shards over: None (default,
+                   one device, the unsharded path bit for bit), ``"auto"``
+                   (every CUDA device when more than one is visible), an
+                   int count of CUDA devices, or an explicit sequence of
+                   devices, which may repeat one: ``("cuda:0",) * 4`` is
+                   four logical shards on one card, ``("cpu",) * 8`` eight
+                   on the host (see :func:`repro_torch.parallel.solver.
+                   resolve_mesh_devices`). A session with a mesh builds
+                   shard-aligned plans and fuses operands on the mesh's
+                   first device. It needs a fused dispatch: ``"staged"``
+                   is rejected, and under ``"auto"`` the ``*_timed`` verbs
+                   stay staged, on ``device``, whose type must be the
+                   mesh's.
     ``policy`` / ``num_chunks``
                    a ``ChunkPolicy`` pricing each dispatch, or a fixed chunk
                    count; mutually exclusive. With neither, unchunked.
@@ -329,7 +340,20 @@ class SolverConfig:
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout={self.layout!r}: must be one of {sorted(LAYOUTS)}")
         if self.mesh is not None:
-            raise _not_ported("mesh", self.mesh, "Queue 1, multi-device")
+            if self.dispatch == "staged":
+                raise ValueError(
+                    f"mesh={self.mesh!r} with dispatch='staged': the staged "
+                    f"path dispatches chunks from a host loop on one device "
+                    f"and cannot shard; use dispatch='fused', or 'auto' "
+                    f"(sharded plain verbs, staged single-device *_timed "
+                    f"verbs)"
+                )
+            devices = resolve_mesh_devices(self.mesh)  # raises on a bad spec
+            if devices is not None and devices[0].type != dev.type:
+                raise ValueError(
+                    f"mesh={self.mesh!r} runs on {devices[0].type!r} but "
+                    f"device={str(self.device)!r}: pass a device of the mesh's type"
+                )
         if self.policy is not None:
             if not isinstance(self.policy, ChunkPolicy):
                 raise TypeError(
@@ -497,8 +521,10 @@ class SolveEngine:
 
     Chunk pricing: ``policy`` prices each dispatch (through
     :func:`~repro_torch.core.tridiag.plan.price_chunks` for a heuristic
-    policy), else a fixed ``default_chunks``. Every dispatch fuses its
-    requests on the executor's device and runs ``executor.execute``.
+    policy), else a fixed ``default_chunks``. When the executor shards
+    over a mesh (its ``mesh_devices``), the plans are shard-aligned
+    (:meth:`plan_shards`). Every dispatch fuses its requests on the
+    executor's device and runs ``executor.execute``.
 
     Results go to the ``on_result``/``on_error`` callbacks; nothing a
     dispatch does can escape: any failure resolves exactly the affected
@@ -532,6 +558,8 @@ class SolveEngine:
     ) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue={max_queue}: must be >= 1 (or None)")
+        # The staged executor (and a test's stand-in) has no mesh.
+        self.mesh_devices = getattr(executor, "mesh_devices", None)
         self.admission = admission if admission is not None else AdmissionPolicy()
         self.max_batch = self.admission.max_batch
         self.max_queue = max_queue
@@ -733,6 +761,13 @@ class SolveEngine:
                 pass  # an error channel that raises must not kill serving
         return len(expired)
 
+    def plan_shards(self, sizes: Sizes) -> int:
+        """Shard count for a batch's plan: the largest divisor of the fused
+        block axis within the mesh's device budget, or 1 without a mesh."""
+        if self.mesh_devices is None:
+            return 1
+        return shard_count(effective_size(sizes) // self.m, len(self.mesh_devices))
+
     def pick_chunks_ragged(self, sizes: Sequence[int]) -> int:
         """Chunk count for any dispatch: the policy's pick for the batch,
         else the fixed ``default_chunks``."""
@@ -853,10 +888,13 @@ class SolveEngine:
             # One read of the policy: a live refit swaps it between
             # dispatches, and this batch is priced and recorded by one.
             policy = self.policy
+            shards = self.plan_shards(sizes)
             if policy is not None:
-                plan = build_plan(sizes, self.m, policy=policy)
+                plan = build_plan(sizes, self.m, policy=policy, shards=shards)
             else:
-                plan = build_plan(sizes, self.m, num_chunks=self.pick_chunks_ragged(sizes))
+                plan = build_plan(
+                    sizes, self.m, num_chunks=self.pick_chunks_ragged(sizes), shards=shards
+                )
             layout = self._executor.resolved_layout(plan)
             model = self.latency_model()
             predicted_ms = (
@@ -961,7 +999,11 @@ class TridiagSession:
         self.config = (SolverConfig() if config is None else config).validate()
         self.device = resolve_device(self.config.device)
         self.backend = resolve_backend(self.config.backend, self.device)
-        self._fused = FusedExecutor(self.backend, device=self.device, layout=self.config.layout)
+        # Resolved once: every executor, plan and stats report sees one list.
+        self._mesh_devices = resolve_mesh_devices(self.config.mesh)
+        self._fused = FusedExecutor(
+            self.backend, device=self.device, layout=self.config.layout, mesh=self._mesh_devices
+        )
         self._staged = PlanExecutor(self.backend, device=self.device, layout=self.config.layout)
         if self.config.plan_cache_capacity is not None:
             set_plan_cache_capacity(self.config.plan_cache_capacity)
@@ -1009,12 +1051,17 @@ class TridiagSession:
     def plan_for(self, sizes: Sizes) -> SolvePlan:
         """The plan this session executes for ``sizes`` (int or sequence),
         priced by the active chunk policy: the config's, until a live refit
-        swaps in the one fitted from telemetry."""
+        swaps in the one fitted from telemetry. With a mesh, plans are
+        shard-aligned; the staged ``*_timed`` path runs the same plan on one
+        device."""
         with self._cv:
             policy = self._active_policy
+        shards = self._engine.plan_shards(sizes)
         if policy is not None:
-            return build_plan(sizes, self.config.m, policy=policy)
-        return build_plan(sizes, self.config.m, num_chunks=self.config.num_chunks or 1)
+            return build_plan(sizes, self.config.m, policy=policy, shards=shards)
+        return build_plan(
+            sizes, self.config.m, num_chunks=self.config.num_chunks or 1, shards=shards
+        )
 
     def _cast(self, *arrays: Any) -> Tuple[Any, ...]:
         return tuple(_cast(a, self.config.dtype) for a in arrays)
@@ -1267,10 +1314,12 @@ class TridiagSession:
         load-shedding counters (``shed_predicted`` among them), queue
         occupancy (``queue_depth``, ``queue_high_water``, ``unresolved``),
         the process-wide ``plan_cache`` and ``executable_cache`` counters,
-        the session's ``device`` and ``backend``, and the closed loop's
-        ``autotune`` block: the refitter's counters (attempts, refits,
-        errors, last refit's age and samples, pick agreement) and the
-        telemetry ring's ``observations`` counts."""
+        the session's ``device`` and ``backend``, its ``mesh`` (None on the
+        single-device path, else the shard count as ``devices``, the torch
+        device type as ``platform`` and the :func:`mesh_signature`), and the
+        closed loop's ``autotune`` block: the refitter's counters (attempts,
+        refits, errors, last refit's age and samples, pick agreement) and
+        the telemetry ring's ``observations`` counts."""
         with self._cv:
             snap = self._engine.stats_snapshot()
             snap["unresolved"] = len(self._futures)
@@ -1278,6 +1327,15 @@ class TridiagSession:
         snap["executable_cache"] = executable_cache_stats()
         snap["device"] = str(self.device)
         snap["backend"] = self.backend.name
+        snap["mesh"] = (
+            None
+            if self._mesh_devices is None
+            else {
+                "devices": len(self._mesh_devices),
+                "platform": self._mesh_devices[0].type,
+                "signature": mesh_signature(self._mesh_devices),
+            }
+        )
         autotune: Dict[str, Any] = (
             self._refitter.stats_snapshot() if self._refitter is not None else {"mode": "off"}
         )

@@ -1,17 +1,19 @@
 """Plan/execute layer of the port: one execution path for every solve.
 
-The counterpart of ``repro.core.tridiag.plan`` on one device. A
+The counterpart of ``repro.core.tridiag.plan``. A
 :class:`SolvePlan` is an immutable layout decision: which systems are fused
 onto the block axis, where the chunk ("stream") boundaries fall, which halo
 block each chunk carries, and where each system's solution lives in the
-fused vector. The chunk count is given explicitly or priced by a
+fused vector; a shard-aligned plan also splits the block axis into equal
+spans, one a device. The chunk count is given explicitly or priced by a
 :class:`ChunkPolicy` (:func:`price_chunks` is the one pricing rule, shared
 with the serving path).
 
 Two executors run a plan, and both return the solution with a
 :class:`ChunkTiming`:
 
-- :class:`FusedExecutor` runs it on one device with no host round trip
+- :class:`FusedExecutor` runs it on one device, or sharded over a device
+  list (``mesh=``, :func:`_fused_sharded`), with no host round trip
   between the stages. System-major: per chunk, Stage 1 on the chunk plus its
   halo block; one reduced (Stage-2) solve of all chunks' reduced rows on the
   device; per chunk, Stage 3 with the left neighbour's interface value
@@ -30,8 +32,8 @@ Two executors run a plan, and both return the solution with a
 ``"auto"`` resolves to the kernels on a CUDA device and to the reference
 stages on the CPU.
 
-Plans are memoised by their ``(sizes, m, num_chunks)`` signature in a bounded,
-lock-protected LRU: a session solves from its worker thread and its caller's
+Plans are memoised by their ``(sizes, m, num_chunks, shards)`` signature in
+a bounded, lock-protected LRU: a session solves from its worker thread and its caller's
 thread at once, and serving traffic repeats batch compositions. Beside it, a
 second LRU keeps the fused path's executables (on a CUDA device, a CUDA graph
 of its stages; see :func:`executable_cache_stats`).
@@ -58,6 +60,7 @@ from repro_torch.core.tridiag.layout import resolve_layout
 from repro_torch.core.tridiag.reference import thomas_numpy
 from repro_torch.core.tridiag.thomas import thomas
 from repro_torch.device import resolve_device
+from repro_torch.parallel.solver import mesh_signature, resolve_mesh_devices, shard_count
 
 Sizes = Union[int, Sequence[int]]
 Tensor = torch.Tensor
@@ -324,6 +327,14 @@ class SolvePlan:
     extend each chunk by its one right halo block (a chunk's last reduced row
     references the next block's spikes); ``offsets`` is the per-system
     element offset table (length B+1).
+
+    ``shards`` is the shard-aligned mode (``build_plan(..., shards=S)``): the
+    block axis is split into ``S`` equal spans (``S`` divides ``num_blocks``
+    and ``num_chunks``), every span boundary is a chunk boundary, and every
+    span carries the same chunk layout, so each device of a mesh can own one
+    span, needs only the next span's first block as its halo, and runs the
+    same chunk loop (:attr:`local_chunk_bounds`). ``shards=1`` is the
+    unsharded plan.
     """
 
     m: int
@@ -331,6 +342,7 @@ class SolvePlan:
     chunk_bounds: Tuple[Tuple[int, int], ...]
     halo_bounds: Tuple[Tuple[int, int], ...]
     offsets: Tuple[int, ...]
+    shards: int = 1
 
     @property
     def total_size(self) -> int:
@@ -344,13 +356,23 @@ class SolvePlan:
     def num_chunks(self) -> int:
         return len(self.chunk_bounds)
 
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.num_blocks // self.shards
+
+    @property
+    def local_chunk_bounds(self) -> Tuple[Tuple[int, int], ...]:
+        """One shard's chunk bounds, relative to the shard's first block:
+        the same in every shard by construction."""
+        return self.chunk_bounds[: self.num_chunks // self.shards]
+
 
 # ------------------------------------------------------------- plan cache --
 # _CACHE_LOCK guards the plan LRU, its counters and its capacity: sessions
 # plan from their worker thread and their callers' threads at once.
 _CACHE_LOCK = threading.RLock()
 _PLAN_CACHE_CAPACITY = 1024
-_PLAN_CACHE: "OrderedDict[Tuple[Tuple[int, ...], int, int], SolvePlan]" = OrderedDict()
+_PLAN_CACHE: "OrderedDict[Tuple[Tuple[int, ...], int, int, int], SolvePlan]" = OrderedDict()
 _PLAN_STATS = {"hits": 0, "misses": 0}
 
 
@@ -386,6 +408,7 @@ def build_plan(
     *,
     num_chunks: Optional[int] = None,
     policy: Optional[ChunkPolicy] = None,
+    shards: int = 1,
 ) -> SolvePlan:
     """Build the :class:`SolvePlan` for a batch of systems of ``sizes``.
 
@@ -395,6 +418,13 @@ def build_plan(
     ``[1, num_blocks]`` (a policy may round to 0 on tiny sizes; an explicit
     ``num_chunks < 1`` is a caller error). Blocks are split as evenly as
     possible, remainder blocks to the leading chunks.
+
+    ``shards`` asks for the shard-aligned mode: the count snaps down to the
+    largest divisor of ``num_blocks`` within the request (a block count
+    prime to every usable count gives the unsharded plan), the chunk count
+    snaps to a multiple of it, and every shard gets the same chunk layout.
+    ``shards=1`` is the unsharded plan. Plans are memoised by their
+    ``(sizes, m, num_chunks, shards)`` signature.
     """
     if isinstance(sizes, (int, np.integer)):
         sizes = (int(sizes),)
@@ -415,10 +445,19 @@ def build_plan(
         if k < 1:
             raise ValueError("num_chunks must be >= 1")
 
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+
     num_blocks = sum(sizes) // m
     k = min(k, num_blocks)
+    # Shard-aligned mode: equal spans, each span boundary a chunk boundary.
+    shards = shard_count(num_blocks, int(shards))
+    if shards > 1:
+        per_shard_blocks = num_blocks // shards
+        per_shard_chunks = max(1, min(per_shard_blocks, round(k / shards)))
+        k = per_shard_chunks * shards
 
-    key = (sizes, m, k)
+    key = (sizes, m, k, shards)
     with _CACHE_LOCK:
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
@@ -427,12 +466,16 @@ def build_plan(
             return cached
         _PLAN_STATS["misses"] += 1
 
+    # k/shards chunks over num_blocks/shards blocks, repeated per shard
+    # (one shard: the whole axis), remainder blocks to the leading chunks.
+    cps, bps = k // shards, num_blocks // shards
     bounds: List[Tuple[int, int]] = []
     start = 0
-    for i in range(k):
-        size = num_blocks // k + (1 if i < num_blocks % k else 0)
-        bounds.append((start, start + size))
-        start += size
+    for _ in range(shards):
+        for i in range(cps):
+            size = bps // cps + (1 if i < bps % cps else 0)
+            bounds.append((start, start + size))
+            start += size
     halos = tuple((lo, min(hi + 1, num_blocks)) for lo, hi in bounds)
     offsets = [0]
     for n in sizes:
@@ -443,6 +486,7 @@ def build_plan(
         chunk_bounds=tuple(bounds),
         halo_bounds=halos,
         offsets=tuple(offsets),
+        shards=shards,
     )
     with _CACHE_LOCK:
         # A racing thread may have built the same plan meanwhile; keep its
@@ -458,12 +502,13 @@ def build_plan(
 
 # ------------------------------------------------------- executable cache --
 # The fused path keeps one executable per (plan, backend, resolved layout,
-# device, operand dtype, leading shape) signature (:class:`_FusedExecutable`).
-# The reference's key also names buffer donation and a mesh; the port has
-# neither. With a capturable backend on a CUDA device, an entry captures its
-# stages into a CUDA graph when its signature is seen the second time, and
-# from then on holds device memory (static operands, the graph's private
-# pool); every other entry holds the eager stages. So the LRU is bounded in
+# device, operand dtype, leading shape) signature (:class:`_FusedExecutable`),
+# and a sharded one also by the mesh signature of the devices it shards over.
+# The reference's key also names buffer donation, which the port does not
+# have. With a capturable backend on a CUDA device, an unsharded entry
+# captures its stages into a CUDA graph when its signature is seen the second
+# time, and from then on holds device memory (static operands, the graph's
+# private pool); every other entry holds the eager stages. So the LRU is bounded in
 # entries and, per device, in the bytes its graphs hold: at most
 # _EXEC_CACHE_MEMORY_SHARE of the card. Both are guarded by _CACHE_LOCK
 # (sessions reach the cache from their worker and caller threads at once).
@@ -640,19 +685,94 @@ def _fused(plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Te
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
+def _fused_sharded(
+    plan: SolvePlan, backend: StageBackend, devices: Sequence[torch.device],
+    dl: Tensor, d: Tensor, du: Tensor, b: Tensor,
+) -> Tensor:
+    """The system-major solve of a shard-aligned ``plan`` over ``devices``,
+    one shard of ``plan.blocks_per_shard`` blocks on each; the counterpart of
+    the reference's ``_sharded_fused_callable``, in its structure.
+
+    The operands are 1-D, on ``devices[0]``. Shard i takes its span plus one
+    halo block, the first block of shard i+1 (the reference's ``ppermute``);
+    the last shard takes none, like the last chunk of :func:`_fused`, so it
+    needs no identity block. Stage 1 runs over ``plan.local_chunk_bounds``.
+    Each device gathers every chunk's reduced rows once, in order (the
+    ``all_gather``), and each shard solves the reduced system on its
+    device's copy. Stage 3 takes
+    its left ghost from that copy, zero for shard 0's first chunk, and the
+    solution is gathered on ``devices[0]`` in shard order. With the plan's
+    chunks, stages and reduced rows unchanged, the answer is
+    :func:`_fused`'s on the same plan, bit for bit. On one device every
+    ``.to()`` is a no-op: logical shards copy nothing, and repeat only the
+    reduced solve.
+    """
+    m, bps, nb = plan.m, plan.blocks_per_shard, plan.num_blocks
+    stage1 = backend.make_stage1(m)
+    stage3 = backend.make_stage3()
+    reduced_solve = backend.make_reduced_solve()
+
+    shard_coeffs: List[List[partition.PartitionCoeffs]] = []
+    for i, dev in enumerate(devices):
+        span = [a[i * bps * m : min((i + 1) * bps + 1, nb) * m].to(dev) for a in (dl, d, du, b)]
+        span_blocks = span[1].shape[-1] // m
+        coeffs = []
+        for lo, hi in plan.local_chunk_bounds:
+            hi_halo = min(hi + 1, span_blocks)
+            chunk = [a[lo * m : hi_halo * m].contiguous() for a in span]
+            coeffs.append(_trim_halo(stage1(*chunk), hi - lo))
+        shard_coeffs.append(coeffs)
+
+    gathered: Dict[torch.device, List[Tensor]] = {}
+    outs = []
+    for i, (dev, coeffs) in enumerate(zip(devices, shard_coeffs)):
+        if dev not in gathered:
+            gathered[dev] = [
+                torch.cat([getattr(c, f).to(dev) for cs in shard_coeffs for c in cs])
+                for f in _RED_FIELDS
+            ]
+        s = reduced_solve(*gathered[dev])
+        base = i * bps
+        for (lo, hi), c in zip(plan.local_chunk_bounds, coeffs):
+            left = torch.zeros_like(s[0]) if base + lo == 0 else s[base + lo - 1]
+            outs.append(_stage3_with_ghost(stage3, c, s[base + lo : base + hi], left).to(devices[0]))
+    return torch.cat(outs)
+
+
 def _fused_interleaved(
     plan: SolvePlan, backend: StageBackend, dl: Tensor, d: Tensor, du: Tensor, b: Tensor, *,
-    maps: layout_mod.Maps = None,
+    maps: layout_mod.Maps = None, devices: Optional[Sequence[torch.device]] = None,
 ) -> Tensor:
     """The interleaved three-stage solve of ``plan`` on the operands' device:
     interleave, wide Stage 1, wide reduced solve, wide Stage 3, deinterleave.
     The plan's chunks do not apply: the B systems are the parallel axis.
-    ``maps``: see :func:`~.layout.gather_maps`."""
+    ``maps``: see :func:`~.layout.gather_maps`.
+
+    ``devices`` (the reference's ``mesh_devices`` branch) splits the lane
+    axis into ``len(devices)`` equal contiguous slices, each made contiguous
+    on its device (the wide kernels take whole (rows, B) tensors), and runs
+    the three wide stages per slice with no transfer in between; the lanes
+    are concatenated on the operands' device, then deinterleaved (a ragged
+    batch's maps belong to the whole batch)."""
     m, sizes = plan.m, plan.sizes
     wide = layout_mod.interleave_operands(dl, d, du, b, sizes, m, maps=maps)
-    c = backend.make_wide_stage1(m)(*wide)
-    s = backend.make_wide_reduced_solve()(c.red_dl, c.red_d, c.red_du, c.red_b)
-    return layout_mod.deinterleave(backend.make_wide_stage3()(c, s), sizes, m, maps=maps)
+    stage1 = backend.make_wide_stage1(m)
+    reduced_solve = backend.make_wide_reduced_solve()
+    stage3 = backend.make_wide_stage3()
+
+    def pipeline(ops: Sequence[Tensor]) -> Tensor:
+        c = stage1(*ops)
+        return stage3(c, reduced_solve(c.red_dl, c.red_d, c.red_du, c.red_b))
+
+    if devices is None:
+        xw = pipeline(wide)
+    else:
+        lanes = len(sizes) // len(devices)
+        xw = torch.cat([
+            pipeline([a[..., i * lanes : (i + 1) * lanes].contiguous().to(dev) for a in wide]).to(dl.device)
+            for i, dev in enumerate(devices)
+        ], dim=-1)
+    return layout_mod.deinterleave(xw, sizes, m, maps=maps)
 
 
 def _check_layout(layout: str) -> str:
@@ -739,15 +859,23 @@ class _FusedExecutable:
     dropped; the next capture on the device gives dropped graphs' pools
     back (:func:`_release_dropped`). A failed capture raises. Elsewhere a
     hit runs the eager stages.
+
+    A sharded entry (its key ends in the mesh signature of the devices it
+    shards over) is never captured in this version: a graph over several
+    devices needs a graph per device and events between them. It is cached
+    and counted like any other, and runs its stages eagerly on every hit.
     """
 
     def __init__(self, key: Tuple[Any, ...], backend: StageBackend) -> None:
-        plan, _, layout, device, dtype, lead = key
+        plan, _, layout, device, dtype, lead, *mesh = key
         self.key = key
         self.plan, self.layout, self.device, self.dtype = plan, layout, device, dtype
         self.shape = lead + (plan.total_size,)
         self.backend = backend
-        self.capturable = device.type == "cuda" and backend.capturable
+        self.shard_devices: Optional[Tuple[torch.device, ...]] = (
+            tuple(torch.device(t, i) for t, i in mesh[0]) if mesh else None
+        )
+        self.capturable = device.type == "cuda" and backend.capturable and not mesh
         self.nbytes = 0
         self._lock = threading.Lock()
         self.graph: Optional[Any] = None
@@ -758,7 +886,10 @@ class _FusedExecutable:
 
     def _stages(self, maps: layout_mod.Maps = None) -> Callable[..., Tensor]:
         if self.layout == "interleaved":
-            return partial(_fused_interleaved, self.plan, self.backend, maps=maps)
+            return partial(_fused_interleaved, self.plan, self.backend, maps=maps,
+                           devices=self.shard_devices)
+        if self.shard_devices is not None:
+            return partial(_fused_sharded, self.plan, self.backend, self.shard_devices)
         return partial(_fused, self.plan, self.backend)
 
     def eager(self, ops: Sequence[Tensor]) -> np.ndarray:
@@ -829,7 +960,8 @@ def _fill(static: Tensor, ops: Sequence[Tensor]) -> None:
 
 
 class FusedExecutor:
-    """Runs a :class:`SolvePlan` on one device, all three stages there.
+    """Runs a :class:`SolvePlan` on one device, all three stages there, or
+    sharded over a device list.
 
     Operands (numpy arrays or tensors; 1-D over ``plan.total_size`` or with
     leading batch dims) are moved to ``device`` (the card unless the caller
@@ -858,6 +990,20 @@ class FusedExecutor:
     budget (``_EXEC_CACHE_MEMORY_SHARE`` of the card); an evicted graph's
     pool goes back to the card before the next capture. At capacity 0
     every call runs eagerly and nothing is kept.
+
+    ``mesh`` (any :func:`repro_torch.parallel.solver.resolve_mesh_devices`
+    spec; default None) shards the solve over a device list, whose first
+    device is then the executor's ``device`` (a ``device`` of another type
+    raises ``ValueError``). System-major solves shard the fused block axis
+    over ``plan.shards`` devices (:func:`_fused_sharded`; so pass a
+    shard-aligned plan, ``build_plan(..., shards=...)``), interleaved ones
+    the lane axis over the largest device count dividing the batch, and
+    ``"auto"`` compares the lanes per shard with the interleave threshold.
+    Only 1-D fused operands shard: leading batch dims run the single-device
+    path. The mesh signature of the devices a solve shards over joins its
+    cache key, so sharded and unsharded entries (or two device lists) never
+    collide; sharded entries run eagerly on every hit (no CUDA graph). With
+    ``mesh=None`` the path and its keys are the single-device ones.
     """
 
     def __init__(
@@ -866,24 +1012,59 @@ class FusedExecutor:
         *,
         device: Union[str, torch.device] = "cuda",
         layout: str = "auto",
+        mesh: Any = None,
     ) -> None:
+        self.mesh_devices = resolve_mesh_devices(mesh)
+        if self.mesh_devices is not None:
+            if torch.device(device).type != self.mesh_devices[0].type:
+                raise ValueError(
+                    f"device={str(device)!r} but the mesh's devices are "
+                    f"{self.mesh_devices[0].type!r}: pass a device of the mesh's type"
+                )
+            for dev in self.mesh_devices:
+                resolve_device(dev)  # a CUDA mesh without a card raises here
+            device = self.mesh_devices[0]
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self.layout = _check_layout(layout)
 
     @property
     def operand_device(self) -> Optional[torch.device]:
-        """Where a caller should fuse operands for this executor: its device."""
+        """Where a caller should fuse operands for this executor: its device
+        (with a mesh, the mesh's first device)."""
         return self.device
+
+    def batch_shards(self, plan: SolvePlan, lead_ndim: int = 0) -> int:
+        """The lane-axis shard count of an interleaved solve of ``plan`` (1
+        without a mesh or with leading batch dims)."""
+        if self.mesh_devices is None or lead_ndim != 0:
+            return 1
+        return shard_count(len(plan.sizes), len(self.mesh_devices))
 
     def resolved_layout(self, plan: SolvePlan, lead_ndim: int = 0) -> str:
         """The concrete layout this executor runs ``plan`` in."""
-        return resolve_layout(self.layout, plan.sizes, plan.m, fused=True, lead_ndim=lead_ndim)
+        return resolve_layout(self.layout, plan.sizes, plan.m, fused=True, lead_ndim=lead_ndim,
+                              batch_shards=self.batch_shards(plan, lead_ndim))
+
+    def shard_devices(self, plan: SolvePlan, layout: str, lead_ndim: int = 0) -> Optional[Tuple[torch.device, ...]]:
+        """The devices a solve of ``plan`` in ``layout`` shards over (None:
+        one device): the lane shards of an interleaved solve, the plan's
+        shards of a system-major one."""
+        if self.mesh_devices is None or lead_ndim != 0:
+            return None
+        if layout == "interleaved":
+            lanes = self.batch_shards(plan)
+            return self.mesh_devices[:lanes] if lanes > 1 else None
+        if 1 < plan.shards <= len(self.mesh_devices):
+            return self.mesh_devices[: plan.shards]
+        return None
 
     def _key(self, plan: SolvePlan, ops: Sequence[Tensor]) -> Tuple[Any, ...]:
         lead = tuple(ops[1].shape[:-1])
         layout = self.resolved_layout(plan, len(lead))
-        return (plan, self.backend.name, layout, self.device, _operand_dtype(plan, ops), lead)
+        key = (plan, self.backend.name, layout, self.device, _operand_dtype(plan, ops), lead)
+        shard_devices = self.shard_devices(plan, layout, len(lead))
+        return key if shard_devices is None else key + (mesh_signature(shard_devices),)
 
     def execute(self, plan: SolvePlan, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
         t0 = time.perf_counter()
