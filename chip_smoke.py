@@ -12,7 +12,9 @@ Phases:
    gives it: the system-major and batched Stage 1/Stage 3, the wide
    (interleaved) Stage 1/Stage 3, ragged identity padding included, the
    reduced solve (``thomas``) on both routes, the tridiagonal matvec, and
-   the SSD intra-chunk stage at mamba2-1.3b's widths; max error against the
+   the SSD intra-chunk stage at mamba2-1.3b's widths and at zamba2-7b's
+   (H = 112, P = 64, N = 64), with the chunked scan around it at both;
+   max error against the
    tolerance ladder (fp64 1e-12, fp32 1e-5), median time from CUDA events
    around one call (``ms``), the kernel's device time beside it
    (``device_ms``: calls queued behind a sleeping kernel, so the host's
@@ -129,15 +131,22 @@ Phases:
    more than one is visible (else it prints that it skipped). All shards
    share one card: no multi-card time is taken.
 7. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
-   ``Model.prefill`` / ``decode_step`` → ``ssm_apply`` → ``ssd_scan_kernel``.
-   (a) mamba2-1.3b at full width, 2 layers, fp32: prefill of 2 x 512 tokens
-   and 4 greedy decode steps on the card (the SSD kernel) against the same
-   weights on the CPU (the plain Stage 1), logits and SSM states within
-   1e-3, tokens identical. (b) the real model, 48 layers in bf16, served:
-   8 requests in 4 slots, one batch padded to 1024 tokens (4 chunks), one
-   of at most 256 (an odd chunk length), 16 new tokens each; every logit
-   finite, every token in the vocab, 48 SSD launches per prefill. Then
-   where the time of one 4 x 1024 prefill and of one decode step goes.
+   ``Model.prefill`` / ``decode_step`` → the blocks (``ssm_apply`` →
+   ``ssd_scan_kernel``; ``attention_apply`` with KV caches, ``mlp_apply``;
+   the hybrid's shared block). (a) Full width, fp32, TF32 off, the card
+   against the CPU on the same weights (drawn on the card, copied to the
+   host): prompts of 2 x 512 tokens (gemma2-27b: 2 x 256) and 4 greedy
+   decode steps for mamba2-1.3b and qwen3-4b with 2 layers, gemma2-27b with
+   2 (one local/global pair) and zamba2-7b with 7 (one super-block of 6 and
+   a tail layer); logits and caches within 1e-3, tokens identical, one SSD
+   launch per SSM layer on the card's prefill. (b) mamba2-1.3b (48 layers),
+   zamba2-7b (81 SSM layers, 13 shared-block calls) and qwen3-4b (36
+   layers) at full depth in bf16, one at a time, served: 8 requests in 4
+   slots, one batch padded to 1024 tokens (4 chunks), one to 197 (an odd
+   chunk), 16 new tokens each, KV caches of 1040 positions; every logit
+   finite, padded logits at -1e30, every token in the vocab, one SSD launch
+   per SSM layer a prefill. Then where the time of one 4 x 1024 prefill and
+   of one decode step goes, for mamba2-1.3b and zamba2-7b.
 
 It exits non-zero when there is no CUDA device, when the port cannot be
 imported, or when any phase fails. The line before the last is the
@@ -147,7 +156,6 @@ imported, or when any phase fails. The line before the last is the
 from __future__ import annotations
 
 import argparse
-import copy
 import dataclasses
 import itertools
 import json
@@ -186,7 +194,14 @@ MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_sta
 LM_KERNELS = ("ssd_stage1",)
 # The main path's launches replayed from CUDA graphs, by kernel (main_phase).
 REPLAYED: Dict[str, int] = {}
-LM_ARCH = "mamba2-1.3b"
+# The lm phase's card-against-CPU runs, part (a): (arch, layers, prompt
+# length); gemma2-27b's shorter prompts bound the CPU's time.
+LM_PARITY = (("mamba2-1.3b", 2, 512), ("qwen3-4b", 2, 512), ("gemma2-27b", 2, 256),
+             ("zamba2-7b", 7, 512))
+# The archs served at full depth in bf16, part (b), one at a time, and
+# those whose time is then broken down.
+LM_SERVED = ("mamba2-1.3b", "zamba2-7b", "qwen3-4b")
+LM_BREAKDOWNS = ("mamba2-1.3b", "zamba2-7b")
 # 48 ragged systems of 60,000 ... 100,000 rows: padded to P_max = 10,000
 # blocks they fill 80.0 % of the wide grid, so "auto" interleaves them.
 RAGGED_48 = tuple(60_000 + (40_000 * i // 47) // M * M for i in range(48))
@@ -1048,45 +1063,50 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
               library=lambda: (csr @ x[:, None])[:, 0])
         del dl, d, du, x, csr, idx
 
-    # SSD Stage 1 at mamba2-1.3b's widths (H = 64 heads of P = 64, N = 128):
-    # the 4 x 1024-token prefill's G = 16 cells of Q = 256, and the odd chunk
-    # of a batch padded to 197 tokens. Inputs as in tests/test_kernel_ssd.py.
-    # The kernel runs its products on the tensor cores in split TF32, three
-    # TF32 products for each fp32 one: its bound is 3 x the operations at
-    # the TF32 rate; the fp32-FMA bound on the CUDA cores is printed beside.
-    nh, p, n = 64, 64, 128
-    for g, q in ((16, 256), (4, 197)):
-        u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
-        nbytes, macs = ssd_cost(g, q, nh, p, n)
-        _, ms = check(f"ssd_stage1/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
-                      lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
-                      nbytes, 3 * 2 * macs, peak=TF32_TC_FLOPS)
-        fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
-        log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, 67 TFLOP/s, "
-            f"share {fma_ms / ms:.3f}); split-TF32 bound {bound(nbytes, 6 * macs, TF32_TC_FLOPS)[0]:.4f} "
-            f"ms (tensor cores, 3 x the operations at 495 TFLOP/s)")
-        del u, dac, b, c
+    # SSD Stage 1 at mamba2-1.3b's widths (H = 64 heads of P = 64, N = 128)
+    # and at zamba2-7b's (H = 112 heads of P = 64, N = 64: a state pass of
+    # half its N tile, two K slices of the scores): the 4 x 1024-token
+    # prefill's G = 16 cells of Q = 256, and the odd chunk of a batch padded
+    # to 197 tokens. Inputs as in tests/test_kernel_ssd.py. The kernel runs
+    # its products on the tensor cores in split TF32, three TF32 products
+    # for each fp32 one: its bound is 3 x the operations at the TF32 rate;
+    # the fp32-FMA bound on the CUDA cores is printed beside.
+    for nh, p, n in ((64, 64, 128), (112, 64, 64)):
+        for g, q in ((16, 256), (4, 197)):
+            u, dac, b, c = ssd_inputs(dev, g, q, nh, p, n, seed=g + q)
+            nbytes, macs = ssd_cost(g, q, nh, p, n)
+            _, ms = check(f"ssd_stage1/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
+                          lambda: ssd_stage1_cuda(u, dac, b, c), lambda: ssd_stage1(u, dac, b, c),
+                          nbytes, 3 * 2 * macs, peak=TF32_TC_FLOPS)
+            fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
+            log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, 67 "
+                f"TFLOP/s, share {fma_ms / ms:.3f}); split-TF32 bound "
+                f"{bound(nbytes, 6 * macs, TF32_TC_FLOPS)[0]:.4f} ms (tensor cores, 3 x the "
+                f"operations at 495 TFLOP/s)")
+            del u, dac, b, c
     ssd_edges(dev)
 
     # The whole chunked scan through the kernel against the plain scan, with
-    # and without an incoming state, at 1e-4 (tests/test_kernel_ssd.py).
+    # and without an incoming state, at 1e-4 (tests/test_kernel_ssd.py), at
+    # both models' widths.
     rng = np.random.default_rng(40)
     bsz, s = 2, 1024
-    x = torch.as_tensor(rng.standard_normal((bsz, s, nh, p)) * 0.5, device=dev).float()
-    dt = torch.as_tensor(np.log1p(np.exp(rng.standard_normal((bsz, s, nh)))), device=dev).float()
-    a = torch.as_tensor(-np.exp(rng.standard_normal(nh) * 0.3), device=dev).float()
-    b_in, c_in = (torch.as_tensor(rng.standard_normal((bsz, s, n)) * 0.5, device=dev).float()
-                  for _ in range(2))
-    for h0 in (None, torch.full((bsz, nh, p, n), 0.1, device=dev)):
-        got = ssd_scan_kernel(x, dt, a, b_in, c_in, chunk=256, h0=h0)
-        want = ssd_scan(x, dt, a, b_in, c_in, chunk=256, h0=h0)
-        errs = []
-        for gt, wt in zip(got, want):
-            np.testing.assert_allclose(gt.cpu().numpy(), wt.cpu().numpy(), rtol=1e-4, atol=1e-4)
-            errs.append(max_err(gt, wt))
-        log(f"  ssd_scan_kernel vs ssd_scan, B={bsz}, S={s}, chunk=256, "
-            f"h0={'None' if h0 is None else '0.1'}: max_abs_err y={errs[0]:.3e} state={errs[1]:.3e}")
-
+    for nh, p, n in ((64, 64, 128), (112, 64, 64)):
+        x = torch.as_tensor(rng.standard_normal((bsz, s, nh, p)) * 0.5, device=dev).float()
+        dt = torch.as_tensor(np.log1p(np.exp(rng.standard_normal((bsz, s, nh)))), device=dev).float()
+        a = torch.as_tensor(-np.exp(rng.standard_normal(nh) * 0.3), device=dev).float()
+        b_in, c_in = (torch.as_tensor(rng.standard_normal((bsz, s, n)) * 0.5, device=dev).float()
+                      for _ in range(2))
+        for h0 in (None, torch.full((bsz, nh, p, n), 0.1, device=dev)):
+            got = ssd_scan_kernel(x, dt, a, b_in, c_in, chunk=256, h0=h0)
+            want = ssd_scan(x, dt, a, b_in, c_in, chunk=256, h0=h0)
+            errs = []
+            for gt, wt in zip(got, want):
+                np.testing.assert_allclose(gt.cpu().numpy(), wt.cpu().numpy(), rtol=1e-4, atol=1e-4)
+                errs.append(max_err(gt, wt))
+            log(f"  ssd_scan_kernel vs ssd_scan, B={bsz}, S={s}, H={nh}, P={p}, N={n}, chunk=256, "
+                f"h0={'None' if h0 is None else '0.1'}: max_abs_err y={errs[0]:.3e} "
+                f"state={errs[1]:.3e}")
 
 def ssd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
                seed: int) -> Tuple[torch.Tensor, ...]:
@@ -2279,83 +2299,116 @@ def mesh_phase(dev: torch.device) -> Dict[str, int]:
 
 
 def lm_phase(dev: torch.device) -> Dict[str, int]:
-    """The LM serving path on the card; returns the SSD kernel's launches."""
+    """The LM serving path on the card; returns the SSD kernel's launches
+    over part (a) and the served runs of part (b)."""
+    import gc
+
     from repro_torch.kernels import LAUNCH_COUNTERS
 
     for c in LAUNCH_COUNTERS.values():
         c.reset()
     log(f"  torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"(fp32 products in full fp32)")
-    lm_parity(dev)
-    params, cfg = lm_serve(dev)
-    launches = {name: LAUNCH_COUNTERS[name].count for name in LM_KERNELS}
-    log(f"  launch counts on the lm path: {launches}")
+    for arch, layers, seq in LM_PARITY:
+        lm_parity(dev, arch, layers, seq)
+        gc.collect()
+    # The breakdowns launch the SSD kernel outside the path: their launches
+    # are taken off the path's counts.
+    outside = {name: 0 for name in LM_KERNELS}
+    for arch in LM_SERVED:
+        params, cfg = lm_serve(dev, arch)
+        if arch in LM_BREAKDOWNS:
+            before = {name: LAUNCH_COUNTERS[name].count for name in LM_KERNELS}
+            lm_breakdown(dev, params, cfg)
+            for name in LM_KERNELS:
+                outside[name] += LAUNCH_COUNTERS[name].count - before[name]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {name: LAUNCH_COUNTERS[name].count - outside[name] for name in LM_KERNELS}
+    log(f"  launch counts on the lm path: {launches} (the breakdowns' {outside} not counted)")
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was never launched on the lm path"
-    lm_breakdown(dev, params, cfg)
     return launches
 
 
-def lm_parity(dev: torch.device) -> None:
-    """(a) Full width, 2 layers, fp32: the card against the CPU, same weights."""
+def ssm_layers(cfg: Any) -> int:
+    """The SSM layers of a config: one SSD launch each a prefill."""
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def lm_parity(dev: torch.device, arch: str, layers: int, seq: int) -> None:
+    """(a) Full width, ``layers`` layers, fp32: the card against the CPU on
+    the same weights (drawn on the card, copied to the host), prompts of
+    2 x ``seq`` tokens and 4 greedy decode steps."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.models.convert import caches_to_reference
     from repro_torch.models.registry import build_model
     from repro_torch.parallel.ctx import ParallelCtx
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
     model, pctx = build_model(cfg), ParallelCtx()
-    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    card_params = copy.deepcopy(cpu_params).to(dev)
-    tokens = torch.as_tensor(np.random.default_rng(50).integers(0, cfg.vocab_size, size=(2, 512)))
+    t0 = time.perf_counter()
+    card_params = model.init(0, device=dev)
+    cpu_params = model.init(0, device=dev).to("cpu")
+    log(f"  (a) {arch}: weights drawn in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.as_tensor(np.random.default_rng(50).integers(0, cfg.vocab_size, size=(2, seq)))
     ssd = LAUNCH_COUNTERS["ssd_stage1"]
     runs = {}
     for where, params in (("cpu", cpu_params), ("cuda", card_params)):
+        on = params.emb.embed.device
         before = ssd.count
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": tokens.to(params.emb.embed.device)}, pctx)
+        logits, caches = model.prefill(params, {"tokens": tokens.to(on)}, pctx, max_len=seq + 4)
         steps, toks = [logits.float().cpu()], []
         tok = torch.argmax(logits[:, -1:], dim=-1)
         for i in range(4):
             toks.append(tok[:, 0].tolist())
-            pos = torch.full((2,), 512 + i, dtype=torch.int32, device=tok.device)
+            pos = torch.full((2,), seq + i, dtype=torch.int32, device=on)
             logits, caches = model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx)
             steps.append(logits[:, -1].float().cpu())
             tok = torch.argmax(logits[:, -1:], dim=-1)
         toks.append(tok[:, 0].tolist())
         if where == "cuda":
             torch.cuda.synchronize()
-        runs[where] = (steps, toks, caches_to_reference(caches, cfg)["ssm"])
-        log(f"  (a) {where}: prefill 2x512 + 4 decode steps in "
+        runs[where] = (steps, toks, caches_to_reference(caches, cfg), ssd.count - before)
+        log(f"  (a) {where}: prefill 2x{seq} + 4 decode steps in "
             f"{time.perf_counter() - t0:.2f} s, ssd_stage1 launches {ssd.count - before}")
-    assert ssd.count == cfg.num_layers, ssd.count  # the card's prefill, one per layer
-    (c_steps, c_toks, c_states), (g_steps, g_toks, g_states) = runs["cpu"], runs["cuda"]
+    (c_steps, c_toks, c_caches, c_ssd), (g_steps, g_toks, g_caches, g_ssd) = (runs["cpu"],
+                                                                               runs["cuda"])
+    assert c_ssd == 0 and g_ssd == ssm_layers(cfg), (c_ssd, g_ssd)  # the card's prefill
     errs = []
     for cl, gl in zip(c_steps, g_steps):
         np.testing.assert_allclose(gl.numpy(), cl.numpy(), rtol=1e-3, atol=1e-3)
         errs.append(max_err(gl, cl))
-    for f in c_states:
-        np.testing.assert_allclose(g_states[f], c_states[f], rtol=1e-3, atol=1e-3)
+    cache_errs = {}
+    for key, fields in c_caches.items():
+        for f, want in fields.items():
+            np.testing.assert_allclose(g_caches[key][f], want, rtol=1e-3, atol=1e-3)
+            cache_errs[f"{key}.{f}"] = max_err(g_caches[key][f], want)
     assert g_toks == c_toks, (g_toks, c_toks)
-    log(f"  (a) {LM_ARCH} full width, 2 layers, fp32, card vs CPU: logits max_abs_err per step "
-        f"{['%.3e' % e for e in errs]}, final SSM state max_abs_err "
-        f"{max(max_err(g_states[f], c_states[f]) for f in c_states):.3e}, greedy tokens identical "
+    log(f"  (a) {arch} full width, {layers} layers, fp32, card vs CPU: logits max_abs_err per step "
+        f"{['%.3e' % e for e in errs]}, final caches max_abs_err "
+        f"{ {k: float('%.3e' % e) for k, e in cache_errs.items()} }, greedy tokens identical "
         f"{g_toks}")
+    del card_params, cpu_params
 
 
-def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
-    """(b) The real model served on the card, 48 layers in bf16."""
+def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
+    """(b) The real model served on the card at full depth in bf16: 8
+    requests in 4 slots, 16 new tokens each, KV caches of 1040 positions."""
     import repro_torch.launch.serve as serve_mod
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import LAUNCH_COUNTERS
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     ssd = LAUNCH_COUNTERS["ssd_stage1"]
     rng = np.random.default_rng(60)
     # Batch 1 pads to 1024 tokens (4 chunks of 256); batch 2 to 197 (one odd chunk).
     lengths = (1024, 700, 512, 300, 197, 150, 64, 9)
-    reqs = [serve_mod.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n), max_new=16)
+    max_new = 16
+    reqs = [serve_mod.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n), max_new=max_new)
             for i, n in enumerate(lengths)]
     seen: Dict[str, Any] = {"prefill_ms": [], "decode_ms": [], "params": None}
     make_prefill, make_decode = serve_mod.make_prefill_step, serve_mod.make_decode_step
@@ -2375,7 +2428,7 @@ def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
             logits, caches = step(params, batch)
             torch.cuda.synchronize()
             seen["prefill_ms"].append((tuple(batch["tokens"].shape), (time.perf_counter() - t0) * 1e3))
-            assert ssd.count - before == cfg.num_layers, (ssd.count - before, cfg.num_layers)
+            assert ssd.count - before == ssm_layers(cfg), (ssd.count - before, ssm_layers(cfg))
             checked(logits)
             return logits, caches
         return run
@@ -2395,59 +2448,79 @@ def lm_serve(dev: torch.device) -> Tuple[Any, Any]:
 
     torch.cuda.reset_peak_memory_stats(dev)
     serve_mod.make_prefill_step, serve_mod.make_decode_step = prefill_step, decode_step
+    t0 = time.perf_counter()
     try:
-        done, stats = serve_mod.serve(arch=LM_ARCH, requests=reqs, batch_slots=4, smoke=False,
-                                      seed=0, device="cuda")
+        done, stats = serve_mod.serve(arch=arch, requests=reqs, batch_slots=4, smoke=False,
+                                      max_len=max(lengths) + max_new, seed=0, device="cuda")
     finally:
         serve_mod.make_prefill_step, serve_mod.make_decode_step = make_prefill, make_decode
     peak = torch.cuda.max_memory_allocated(dev)
-    assert stats["prefills"] == 2 and stats["tokens"] == 16 * len(reqs), stats
+    assert stats["prefills"] == 2 and stats["tokens"] == max_new * len(reqs), stats
     for r in done:
-        assert len(r.out) == 16 and all(0 <= t < cfg.vocab_size for t in r.out), (r.rid, r.out)
+        assert len(r.out) == max_new and all(0 <= t < cfg.vocab_size for t in r.out), (r.rid, r.out)
     n_params = sum(p.numel() for p in seen["params"].parameters())
     dec = seen["decode_ms"]
-    log(f"  (b) {LM_ARCH} served, {cfg.num_layers} layers, {cfg.dtype}, {n_params} parameters: "
-        f"prefill_ms per batch {[(shape, round(ms, 3)) for shape, ms in seen['prefill_ms']]}, "
+    shape = (f"{cfg.num_layers} SSM layers and {cfg.num_layers // cfg.shared_attn_every} "
+             f"shared-block calls" if cfg.family == "hybrid" else f"{cfg.num_layers} layers")
+    log(f"  (b) {arch} served, {shape}, {cfg.dtype}, {n_params} parameters "
+        f"(init and serve {time.perf_counter() - t0:.2f} s): "
+        f"prefill_ms per batch {[(sh, round(ms, 3)) for sh, ms in seen['prefill_ms']]}, "
         f"decode_ms per token median {statistics.median(dec):.3f} (min {min(dec):.3f}, "
         f"max {max(dec):.3f}, {len(dec)} steps), tokens/s {stats['tokens'] / stats['wall_s']:.1f} "
         f"(wall_s {stats['wall_s']:.3f}), peak_memory_GB {peak / 1e9:.3f}; stats {stats}; "
-        f"first tokens {[r.out[:4] for r in done[:2]]}")
+        f"ssd_stage1 launches per prefill {ssm_layers(cfg)}; first tokens "
+        f"{[r.out[:4] for r in done[:2]]}")
     return seen["params"], cfg
 
 
 def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
     """Where one full-width bf16 prefill of 4 x 1024 tokens and one decode
-    step at batch 4 go: each part timed on its own with CUDA events (48
-    times one layer's part), the rest by difference. The SSD kernel's
+    step at batch 4 (after a 1024-token prompt; KV caches of 1040
+    positions) go: each part timed on its own with CUDA events, one SSM
+    layer's part times the SSM layers and, for the hybrid, one shared-block
+    call's part times its calls; the rest by difference. The SSD kernel's
     device time (``device_ms``) is printed beside."""
     from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel, ssd_stage1_cuda
+    from repro_torch.models.hybrid import SHARED_ACTIVATION, _split
+    from repro_torch.models.layers.attention import attention_apply, make_kv_cache
     from repro_torch.models.layers.embedding import logits_out
+    from repro_torch.models.layers.mlp import mlp_apply
     from repro_torch.models.registry import build_model
     from repro_torch.parallel.ctx import ParallelCtx
 
     model, pctx = build_model(cfg), ParallelCtx()
+    hybrid = cfg.family == "hybrid"
     layers = cfg.num_layers
-    layer = params.layers[0].ssm
+    calls = _split(cfg)[0] if hybrid else 0
+    layer = (params.ssm_layers if hybrid else params.layers)[0].ssm
     d, di, nh, p, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     gen = torch.Generator(device=dev).manual_seed(70)
     bf16 = params.emb.embed.dtype
-    bsz = 4
+    bsz, t_cache = 4, 1040
     with torch.inference_mode():
         for s in (1024, 1):
             tokens = torch.randint(0, cfg.vocab_size, (bsz, s), generator=gen, device=dev)
             if s > 1:
-                total = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, pctx), reps=3, warmup=1)
+                total = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, pctx,
+                                                      max_len=t_cache), reps=3, warmup=1)
+                index = torch.zeros(bsz, dtype=torch.int32, device=dev)
+                positions = torch.arange(s, device=dev).expand(bsz, s)
             else:
-                _, caches = model.prefill(params, {"tokens": tokens}, pctx)
-                pos = torch.full((bsz,), 1, dtype=torch.int32, device=dev)
+                prompt = torch.randint(0, cfg.vocab_size, (bsz, 1024), generator=gen, device=dev)
+                _, caches = model.prefill(params, {"tokens": prompt}, pctx, max_len=t_cache)
+                index = torch.full((bsz,), 1024, dtype=torch.int32, device=dev)
+                positions = index[:, None]
                 total = cuda_ms(lambda: model.decode_step(
-                    params, caches, {"token": tokens, "pos": pos}, pctx), reps=10, warmup=2)
+                    params, caches, {"token": tokens, "pos": index}, pctx), reps=10, warmup=2)
+                del caches
             x = torch.randn(bsz, s, d, generator=gen, device=dev).to(bf16)
             y = torch.randn(bsz, s, di, generator=gen, device=dev).to(bf16)
             proj = cuda_ms(lambda: (x @ layer.w_z, x @ layer.w_x, x @ layer.w_b, x @ layer.w_c,
                                     x @ layer.w_dt, y @ layer.out_proj), reps=10) * layers
-            logits = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
-            parts = {"projections": proj, "logits": logits}
+            parts = {"projections": proj}
+            if hybrid:
+                x2 = torch.randn(bsz, s, 2 * d, generator=gen, device=dev).to(bf16)
+                parts["projections"] += cuda_ms(lambda: x2 @ params.shared.w_in, reps=10) * calls
             if s > 1:
                 xh = torch.randn(bsz, s, nh, p, generator=gen, device=dev)
                 dt = torch.nn.functional.softplus(torch.randn(bsz, s, nh, generator=gen, device=dev))
@@ -2462,11 +2535,19 @@ def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
                 log(f"    ssd_stage1 device time (device_ms, cold L2): "
                     f"{device_ms(lambda: ssd_stage1_cuda(u, dac, bc, cc)) * layers:.3f} ms "
                     f"for {layers} layers")
-                parts.update({"ssd_stage1 kernel": kernel,
-                              "ssd stages 2-3 and glue": scan - kernel})
+                parts.update({"ssd_stage1 kernel": kernel, "ssd stages 2-3 and glue": scan - kernel})
+            if hybrid:
+                cache = make_kv_cache(cfg, bsz, t_cache, bf16, device=dev)
+                parts["shared attention (with its projections)"] = cuda_ms(
+                    lambda: attention_apply(params.shared.attn, x, positions, cfg, pctx, cache=cache,
+                                            cache_index=index), reps=5) * calls
+                parts["shared MLP"] = cuda_ms(
+                    lambda: mlp_apply(params.shared.mlp, x, SHARED_ACTIVATION, pctx), reps=5) * calls
+            parts["logits"] = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
             parts["rest (conv, norms, gating, embedding, launches)"] = total - sum(parts.values())
             label = f"prefill {bsz}x{s}" if s > 1 else f"decode step, batch {bsz}"
-            log(f"  where the time goes, {label} (bf16, {layers} layers): total_ms={total:.3f}; "
+            shape = f"{layers} SSM layers" + (f", {calls} shared-block calls" if hybrid else "")
+            log(f"  where the time goes, {cfg.arch_id} {label} (bf16, {shape}): total_ms={total:.3f}; "
                 + "; ".join(f"{k}={v:.3f} ({v / total:.1%})" for k, v in parts.items()))
 
 
@@ -2537,8 +2618,8 @@ def main() -> int:
         mesh = mesh_phase(dev)
         log(f"mesh: {time.perf_counter() - t0:.1f} s")
     if "lm" in phases:
-        log(f"lm: {LM_ARCH} through repro_torch.launch.serve (Model.prefill/decode_step, "
-            f"ssd_scan_kernel)")
+        log(f"lm: {', '.join(LM_SERVED)} through repro_torch.launch.serve (Model.prefill/"
+            f"decode_step, ssd_scan_kernel, attention)")
         t0 = time.perf_counter()
         launches.update(lm_phase(dev))
         log(f"lm: {time.perf_counter() - t0:.1f} s")

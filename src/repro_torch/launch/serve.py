@@ -5,11 +5,16 @@ longest prompt, prefilled once and decoded until its longest request is
 done).
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b           # smoke size
-    python -m repro_torch.launch.serve --arch mamba2-1.3b --full    # real model
+    python -m repro_torch.launch.serve --arch zamba2-7b --full      # real model
+    python -m repro_torch.launch.serve --arch qwen3-4b --full
 
-It runs on the CUDA device unless ``--device cpu`` is given. A padded prompt
-longer than the config's ``ssm_chunk`` must be a multiple of it, as in the
-reference (``ValueError`` otherwise).
+It serves the ``ssm``, ``dense``, ``vlm`` and ``hybrid`` families, on the
+CUDA device unless ``--device cpu`` is given. For the ``ssm`` and ``hybrid``
+families a padded prompt longer than the config's ``ssm_chunk`` must be a
+multiple of it, as in the reference (``ValueError`` otherwise). KV caches
+hold ``max_len`` positions: a batch's padded prompt (with the VLM's
+``frontend_tokens``) plus its new tokens should fit, as the cache's write
+position is clamped to its last slot, as in the reference.
 """
 
 from __future__ import annotations
@@ -21,11 +26,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import LM
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
@@ -50,11 +55,12 @@ def serve(
     greedy: bool = True,
     seed: int = 0,
     device: DeviceLike = "cuda",
-    params: Optional[LM] = None,
+    params: Optional[nn.Module] = None,
 ) -> Tuple[List[Request], Dict[str, Any]]:
     """Serve ``requests``; returns them with ``out`` filled, and ``stats``
     (``prefills``, ``decode_steps``, ``tokens``, ``wall_s``). Weights are
-    random from ``seed`` unless ``params`` (already on ``device``) is given."""
+    random from ``seed`` unless ``params`` (already on ``device``) is given.
+    The VLM's batches carry zero patches of ``[B, frontend_tokens, d]``."""
     if use_mesh:
         raise NotImplementedError(
             f"serve(use_mesh={use_mesh!r}): the port serves on one device; the "
@@ -85,10 +91,14 @@ def serve(
         toks = np.zeros((len(active), plen), np.int64)
         for i, r in enumerate(active):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
-        logits, caches = prefill(params, {"tokens": torch.from_numpy(toks).to(dev)})
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros(len(active), cfg.frontend_tokens, cfg.d_model,
+                                           dtype=getattr(torch, cfg.dtype), device=dev)
+        logits, caches = prefill(params, batch)
         stats["prefills"] += 1
         next_tok = torch.argmax(logits[:, -1:, :], dim=-1)
-        offset = plen
+        offset = plen + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
         max_new = max(r.max_new for r in active)
         for step in range(max_new):
             host_tok = next_tok[:, 0].tolist()
@@ -125,14 +135,18 @@ def main() -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
-    # Prompts of at most one chunk, so any padded batch length is allowed.
+    # The reference's 4 ... 23 tokens; for the SSM families at most one
+    # chunk, so any padded batch length is allowed.
+    lo, hi = (1, cfg.ssm_chunk + 1) if cfg.family in ("ssm", "hybrid") else (4, 24)
     reqs = [
-        Request(rid=i,
-                prompt=rng.integers(0, cfg.vocab_size, size=int(rng.integers(1, cfg.ssm_chunk + 1))),
+        Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(rng.integers(lo, hi))),
                 max_new=args.max_new)
         for i in range(args.requests)
     ]
-    done, stats = serve(arch=args.arch, requests=reqs, batch_slots=args.slots,
+    # KV caches long enough for the longest prompt and its new tokens.
+    max_len = max(256, max((len(r.prompt) for r in reqs), default=0) + cfg.frontend_tokens
+                  + args.max_new)
+    done, stats = serve(arch=args.arch, requests=reqs, batch_slots=args.slots, max_len=max_len,
                         smoke=not args.full, seed=args.seed, device=args.device)
     dev = resolve_device(args.device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

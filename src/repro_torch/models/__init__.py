@@ -1,1 +1,2 @@
-"""The LM stack of the port: the ``ssm`` family (Mamba-2) so far."""
+"""The LM stack of the port: the ``ssm``, ``dense``, ``vlm`` and ``hybrid``
+families so far (``moe`` and ``encdec`` are still to be ported)."""

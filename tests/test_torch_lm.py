@@ -176,8 +176,8 @@ def test_list_archs_is_the_references():
     assert list_archs() == ref_list_archs()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-7b", "whisper-medium"],
-                         ids=["dense", "hybrid", "encdec"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "whisper-medium"],
+                         ids=["moe-moonshot", "moe-kimi", "encdec"])
 def test_build_model_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(arch))
