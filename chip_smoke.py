@@ -132,21 +132,34 @@ Phases:
    share one card: no multi-card time is taken.
 7. ``lm``: the LM serving path, ``repro_torch.launch.serve.serve`` →
    ``Model.prefill`` / ``decode_step`` → the blocks (``ssm_apply`` →
-   ``ssd_scan_kernel``; ``attention_apply`` with KV caches, ``mlp_apply``;
-   the hybrid's shared block). (a) Full width, fp32, TF32 off, the card
-   against the CPU on the same weights (drawn on the card, copied to the
-   host): prompts of 2 x 512 tokens (gemma2-27b: 2 x 256) and 4 greedy
-   decode steps for mamba2-1.3b and qwen3-4b with 2 layers, gemma2-27b with
-   2 (one local/global pair) and zamba2-7b with 7 (one super-block of 6 and
-   a tail layer); logits and caches within 1e-3, tokens identical, one SSD
-   launch per SSM layer on the card's prefill. (b) mamba2-1.3b (48 layers),
-   zamba2-7b (81 SSM layers, 13 shared-block calls) and qwen3-4b (36
-   layers) at full depth in bf16, one at a time, served: 8 requests in 4
-   slots, one batch padded to 1024 tokens (4 chunks), one to 197 (an odd
-   chunk), 16 new tokens each, KV caches of 1040 positions; every logit
-   finite, padded logits at -1e30, every token in the vocab, one SSD launch
-   per SSM layer a prefill. Then where the time of one 4 x 1024 prefill and
-   of one decode step goes, for mamba2-1.3b and zamba2-7b.
+   ``ssd_scan_kernel``; ``attention_apply`` with KV caches, ``mlp_apply``,
+   ``moe_apply``; the hybrid's shared block; the encoder-decoder's
+   ``encode`` and ``decode`` with cross-attention). (a) Full width, fp32,
+   TF32 off, the card against the CPU on the same weights (drawn on the
+   card, copied to the host): prompts of 2 x 512 tokens (gemma2-27b: 2 x
+   256; whisper-medium: 2 x 128 against 1500 frames from a seed) and 4
+   greedy decode steps for mamba2-1.3b, qwen3-4b and moonshot-v1-16b-a3b
+   with 2 layers, gemma2-27b with 2 (one local/global pair), zamba2-7b with
+   7 (one super-block of 6 and a tail layer) and whisper-medium with 2
+   encoder and 2 decoder layers; logits and caches (``enc_out`` too) within
+   1e-3, tokens identical, one SSD launch per SSM layer on the card's
+   prefill; for moonshot the router's expert choices, card against CPU,
+   are counted and printed. (b) mamba2-1.3b (48 layers), zamba2-7b (81 SSM
+   layers, 13 shared-block calls), qwen3-4b (36 layers),
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6 + 2 shared) and
+   whisper-medium (24 + 24 layers, 64 zero frames a batch) at full depth
+   in bf16, one at a time, served: 8 requests in 4 slots, one batch padded
+   to 1024 tokens (4 chunks), one to 197 (an odd chunk), 16 new tokens
+   each, KV caches of 1040 positions; every logit finite, padded logits at
+   -1e30, every token in the vocab, one SSD launch per SSM layer a
+   prefill; the share of MoE (token, k) choices dropped at prefill.
+   whisper-medium also runs one ``Model.prefill`` against [4, 1500, 1024]
+   frames (its encoder timed apart) and 4 decode steps against them.
+   kimi-k2-1t-a32b at full width cut to one layer: a 4 x 1024 prefill and
+   16 decode steps through ``Model.prefill`` / ``decode_step``. Then where
+   the time of one 4 x 1024 prefill and of one decode step goes, for
+   mamba2-1.3b, zamba2-7b, moonshot-v1-16b-a3b and kimi-k2 (the MoE layer
+   split into its expert products, shared experts and the rest of it).
 
 It exits non-zero when there is no CUDA device, when the port cannot be
 imported, or when any phase fails. The line before the last is the
@@ -196,12 +209,15 @@ LM_KERNELS = ("ssd_stage1",)
 REPLAYED: Dict[str, int] = {}
 # The lm phase's card-against-CPU runs, part (a): (arch, layers, prompt
 # length); gemma2-27b's shorter prompts bound the CPU's time.
+# whisper-medium's layers are its encoder's and its decoder's each.
 LM_PARITY = (("mamba2-1.3b", 2, 512), ("qwen3-4b", 2, 512), ("gemma2-27b", 2, 256),
-             ("zamba2-7b", 7, 512))
+             ("zamba2-7b", 7, 512), ("moonshot-v1-16b-a3b", 2, 512), ("whisper-medium", 2, 128))
 # The archs served at full depth in bf16, part (b), one at a time, and
 # those whose time is then broken down.
-LM_SERVED = ("mamba2-1.3b", "zamba2-7b", "qwen3-4b")
-LM_BREAKDOWNS = ("mamba2-1.3b", "zamba2-7b")
+LM_SERVED = ("mamba2-1.3b", "zamba2-7b", "qwen3-4b", "moonshot-v1-16b-a3b", "whisper-medium")
+LM_BREAKDOWNS = ("mamba2-1.3b", "zamba2-7b", "moonshot-v1-16b-a3b")
+# kimi-k2-1t-a32b (2.09 TB in bf16) at full width, cut to this many layers.
+KIMI_LAYERS = 1
 # 48 ragged systems of 60,000 ... 100,000 rows: padded to P_max = 10,000
 # blocks they fill 80.0 % of the wide grid, so "auto" interleaves them.
 RAGGED_48 = tuple(60_000 + (40_000 * i // 47) // M * M for i in range(48))
@@ -2319,12 +2335,17 @@ def lm_phase(dev: torch.device) -> Dict[str, int]:
         params, cfg = lm_serve(dev, arch)
         if arch in LM_BREAKDOWNS:
             before = {name: LAUNCH_COUNTERS[name].count for name in LM_KERNELS}
-            lm_breakdown(dev, params, cfg)
+            (moe_breakdown if cfg.family == "moe" else lm_breakdown)(dev, params, cfg)
             for name in LM_KERNELS:
                 outside[name] += LAUNCH_COUNTERS[name].count - before[name]
+        if cfg.family == "encdec":
+            encdec_frames(dev, params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    lm_kimi(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {name: LAUNCH_COUNTERS[name].count - outside[name] for name in LM_KERNELS}
     log(f"  launch counts on the lm path: {launches} (the breakdowns' {outside} not counted)")
     for name, count in launches.items():
@@ -2337,17 +2358,93 @@ def ssm_layers(cfg: Any) -> int:
     return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
 
 
+class Routes:
+    """While open, records the router's expert ids and the capacity of every
+    MoE dispatch (``_expert_shard``) where ``on`` is set."""
+
+    def __init__(self) -> None:
+        self.calls: List[Tuple[torch.Tensor, int]] = []
+        self.on = True
+
+    def __enter__(self) -> "Routes":
+        from repro_torch.models.layers import moe
+
+        self._inner = moe._expert_shard
+
+        def spy(*args: Any, **kw: Any) -> torch.Tensor:
+            if self.on:
+                self.calls.append((args[5], kw["capacity"]))
+            return self._inner(*args, **kw)
+
+        moe._expert_shard = spy
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        from repro_torch.models.layers import moe
+
+        moe._expert_shard = self._inner
+
+    def dropped(self, num_experts: int,
+                real: Optional[List[torch.Tensor]] = None) -> Tuple[int, int, int, int]:
+        """(token, k) choices that found their expert full, all choices, and
+        the same two over the tokens ``real`` marks ([T] booleans, one mask
+        a call; all tokens where it is ``None``). An expert keeps its first
+        ``capacity`` choices in flat order, as the layer assigns slots."""
+        dropped = total = real_dropped = real_total = 0
+        for c, (ids, capacity) in enumerate(self.calls):
+            flat = ids.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            ranked = flat[order]
+            first = torch.searchsorted(ranked, torch.arange(num_experts, device=flat.device))
+            kept = torch.empty_like(flat, dtype=torch.bool)
+            kept[order] = torch.arange(flat.numel(), device=flat.device) - first[ranked] < capacity
+            mask = (torch.ones_like(kept) if real is None
+                    else real[c].to(flat.device).repeat_interleave(ids.shape[-1]))
+            dropped += int((~kept).sum())
+            total += flat.numel()
+            real_dropped += int((~kept & mask).sum())
+            real_total += int(mask.sum())
+        return dropped, total, real_dropped, real_total
+
+
+def family_cfg(arch: str, layers: int, **changes: Any) -> Any:
+    """The published config cut to ``layers`` layers (the encoder's and the
+    decoder's each for the encoder-decoder)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    depth = ({"enc_layers": layers, "dec_layers": layers, "num_layers": 2 * layers}
+             if cfg.family == "encdec" else {"num_layers": layers})
+    return dataclasses.replace(cfg, **depth, **changes)
+
+
+def frames_of(cfg: Any, b: int, t: int, seed: int, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The encoder-decoder's frames from a seed (``{}`` for other families)."""
+    if cfg.family != "encdec":
+        return {}
+    a = np.random.default_rng(seed).standard_normal((b, t, cfg.d_model)).astype(np.float32)
+    return {"frames": torch.from_numpy(a).to(dev, getattr(torch, cfg.dtype))}
+
+
+def cache_leaves(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``caches_to_reference``'s arrays by name: ``kv.k``, ``enc_out``, ..."""
+    return {(f"{key}.{f}" if isinstance(fields, dict) else key): a
+            for key, fields in tree.items()
+            for f, a in (fields.items() if isinstance(fields, dict) else ((key, fields),))}
+
+
 def lm_parity(dev: torch.device, arch: str, layers: int, seq: int) -> None:
     """(a) Full width, ``layers`` layers, fp32: the card against the CPU on
     the same weights (drawn on the card, copied to the host), prompts of
-    2 x ``seq`` tokens and 4 greedy decode steps."""
-    from repro_torch.configs.base import get_config
+    2 x ``seq`` tokens and 4 greedy decode steps (the encoder-decoder's
+    against ``frontend_tokens`` frames from a seed); the MoE's router
+    choices card against CPU."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.models.convert import caches_to_reference
     from repro_torch.models.registry import build_model
     from repro_torch.parallel.ctx import ParallelCtx
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+    cfg = family_cfg(arch, layers, dtype="float32")
     model, pctx = build_model(cfg), ParallelCtx()
     t0 = time.perf_counter()
     card_params = model.init(0, device=dev)
@@ -2360,39 +2457,86 @@ def lm_parity(dev: torch.device, arch: str, layers: int, seq: int) -> None:
         on = params.emb.embed.device
         before = ssd.count
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": tokens.to(on)}, pctx, max_len=seq + 4)
-        steps, toks = [logits.float().cpu()], []
-        tok = torch.argmax(logits[:, -1:], dim=-1)
-        for i in range(4):
-            toks.append(tok[:, 0].tolist())
-            pos = torch.full((2,), seq + i, dtype=torch.int32, device=on)
-            logits, caches = model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx)
-            steps.append(logits[:, -1].float().cpu())
+        with Routes() as routes:
+            batch = {"tokens": tokens.to(on), **frames_of(cfg, 2, cfg.frontend_tokens, 51, on)}
+            logits, caches = model.prefill(params, batch, pctx, max_len=seq + 4)
+            steps, toks = [logits.float().cpu()], []
             tok = torch.argmax(logits[:, -1:], dim=-1)
+            for i in range(4):
+                toks.append(tok[:, 0].tolist())
+                pos = torch.full((2,), seq + i, dtype=torch.int32, device=on)
+                logits, caches = model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx)
+                steps.append(logits[:, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1:], dim=-1)
         toks.append(tok[:, 0].tolist())
         if where == "cuda":
             torch.cuda.synchronize()
-        runs[where] = (steps, toks, caches_to_reference(caches, cfg), ssd.count - before)
+        runs[where] = (steps, toks, caches_to_reference(caches, cfg), ssd.count - before,
+                       [ids.cpu() for ids, _ in routes.calls])
         log(f"  (a) {where}: prefill 2x{seq} + 4 decode steps in "
             f"{time.perf_counter() - t0:.2f} s, ssd_stage1 launches {ssd.count - before}")
-    (c_steps, c_toks, c_caches, c_ssd), (g_steps, g_toks, g_caches, g_ssd) = (runs["cpu"],
-                                                                               runs["cuda"])
+    (c_steps, c_toks, c_caches, c_ssd, c_ids), (g_steps, g_toks, g_caches, g_ssd, g_ids) = (
+        runs["cpu"], runs["cuda"])
+    if cfg.family == "moe":
+        # Choices in the card's top k that are not in the CPU's, by dispatch.
+        assert len(g_ids) == len(c_ids) == layers * 5, (len(g_ids), len(c_ids))
+        differ = [int((~(g[..., :, None] == c[..., None, :]).any(-1)).sum())
+                  for g, c in zip(g_ids, c_ids)]
+        reordered = sum(int((g != c).any(-1).sum()) for g, c in zip(g_ids, c_ids))
+        log(f"  (a) {arch} router, card vs CPU: {sum(differ)} of "
+            f"{sum(g.numel() for g in g_ids)} (token, k) expert choices differ "
+            f"(per dispatch, prefill then decode, layer by layer: {differ}); tokens whose "
+            f"top-{cfg.experts_per_token} order differs: {reordered}")
     assert c_ssd == 0 and g_ssd == ssm_layers(cfg), (c_ssd, g_ssd)  # the card's prefill
     errs = []
     for cl, gl in zip(c_steps, g_steps):
         np.testing.assert_allclose(gl.numpy(), cl.numpy(), rtol=1e-3, atol=1e-3)
         errs.append(max_err(gl, cl))
     cache_errs = {}
-    for key, fields in c_caches.items():
-        for f, want in fields.items():
-            np.testing.assert_allclose(g_caches[key][f], want, rtol=1e-3, atol=1e-3)
-            cache_errs[f"{key}.{f}"] = max_err(g_caches[key][f], want)
+    for name, want in cache_leaves(c_caches).items():
+        got = cache_leaves(g_caches)[name]
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+        cache_errs[name] = max_err(got, want)
     assert g_toks == c_toks, (g_toks, c_toks)
-    log(f"  (a) {arch} full width, {layers} layers, fp32, card vs CPU: logits max_abs_err per step "
+    shape = (f"{layers} encoder + {layers} decoder layers, {cfg.frontend_tokens} frames"
+             if cfg.family == "encdec" else f"{layers} layers")
+    log(f"  (a) {arch} full width, {shape}, fp32, card vs CPU: logits max_abs_err per step "
         f"{['%.3e' % e for e in errs]}, final caches max_abs_err "
         f"{ {k: float('%.3e' % e) for k, e in cache_errs.items()} }, greedy tokens identical "
         f"{g_toks}")
     del card_params, cpu_params
+
+
+def model_shape(cfg: Any) -> str:
+    if cfg.family == "hybrid":
+        return (f"{cfg.num_layers} SSM layers and {cfg.num_layers // cfg.shared_attn_every} "
+                f"shared-block calls")
+    if cfg.family == "moe":
+        return (f"{cfg.num_layers} layers, {cfg.num_experts} experts top-{cfg.experts_per_token}"
+                f" + {cfg.num_shared_experts} shared")
+    if cfg.family == "encdec":
+        return f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers"
+    return f"{cfg.num_layers} layers"
+
+
+def check_logits(logits: torch.Tensor, cfg: Any) -> None:
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert bool((logits[..., cfg.vocab_size:] == -1e30).all())
+
+
+def drop_note(routes: Routes, cfg: Any, real: Optional[List[torch.Tensor]] = None) -> str:
+    """The share of MoE (token, k) choices dropped at prefill, and, where
+    ``real`` marks the prompts' tokens, the share among them."""
+    if cfg.family != "moe":
+        return ""
+    dropped, total, real_dropped, real_total = routes.dropped(cfg.num_experts, real)
+    note = (f", MoE slots dropped at prefill {dropped} of {total} (token, k) choices "
+            f"({dropped / max(total, 1):.2%})")
+    if real is not None:
+        note += (f", of the prompts' own tokens {real_dropped} of {real_total} "
+                 f"({real_dropped / max(real_total, 1):.2%}; the other dropped choices are "
+                 f"left pads', which route alike and take their experts' first slots)")
+    return note
 
 
 def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
@@ -2412,10 +2556,7 @@ def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
             for i, n in enumerate(lengths)]
     seen: Dict[str, Any] = {"prefill_ms": [], "decode_ms": [], "params": None}
     make_prefill, make_decode = serve_mod.make_prefill_step, serve_mod.make_decode_step
-
-    def checked(logits: torch.Tensor) -> None:
-        assert bool(torch.isfinite(logits).all()), "non-finite logits"
-        assert bool((logits[..., cfg.vocab_size:] == -1e30).all())
+    routes = Routes()
 
     def prefill_step(*a: Any, **k: Any) -> Callable[..., Any]:
         step = make_prefill(*a, **k)
@@ -2423,13 +2564,15 @@ def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
         def run(params: Any, batch: Dict[str, torch.Tensor]) -> Any:
             seen["params"] = params
             before = ssd.count
+            routes.on = True
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, caches = step(params, batch)
             torch.cuda.synchronize()
             seen["prefill_ms"].append((tuple(batch["tokens"].shape), (time.perf_counter() - t0) * 1e3))
+            routes.on = False
             assert ssd.count - before == ssm_layers(cfg), (ssd.count - before, ssm_layers(cfg))
-            checked(logits)
+            check_logits(logits, cfg)
             return logits, caches
         return run
 
@@ -2442,7 +2585,7 @@ def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
             logits, caches = step(*args)
             torch.cuda.synchronize()
             seen["decode_ms"].append((time.perf_counter() - t0) * 1e3)
-            checked(logits)
+            check_logits(logits, cfg)
             return logits, caches
         return run
 
@@ -2450,27 +2593,197 @@ def lm_serve(dev: torch.device, arch: str) -> Tuple[Any, Any]:
     serve_mod.make_prefill_step, serve_mod.make_decode_step = prefill_step, decode_step
     t0 = time.perf_counter()
     try:
-        done, stats = serve_mod.serve(arch=arch, requests=reqs, batch_slots=4, smoke=False,
-                                      max_len=max(lengths) + max_new, seed=0, device="cuda")
+        with routes:
+            done, stats = serve_mod.serve(arch=arch, requests=reqs, batch_slots=4, smoke=False,
+                                          max_len=max(lengths) + max_new, seed=0, device="cuda")
     finally:
         serve_mod.make_prefill_step, serve_mod.make_decode_step = make_prefill, make_decode
     peak = torch.cuda.max_memory_allocated(dev)
     assert stats["prefills"] == 2 and stats["tokens"] == max_new * len(reqs), stats
     for r in done:
         assert len(r.out) == max_new and all(0 <= t < cfg.vocab_size for t in r.out), (r.rid, r.out)
+    real = None
+    if cfg.family == "moe":
+        assert len(routes.calls) == 2 * cfg.num_layers, len(routes.calls)
+        # The prompts' tokens of each prefill batch (left-padded), a mask a layer.
+        real = []
+        for lo in (0, 4):
+            rows = lengths[lo:lo + 4]
+            width = max(rows)
+            mask = torch.cat([torch.arange(width) >= width - n for n in rows])
+            real += [mask] * cfg.num_layers
     n_params = sum(p.numel() for p in seen["params"].parameters())
     dec = seen["decode_ms"]
-    shape = (f"{cfg.num_layers} SSM layers and {cfg.num_layers // cfg.shared_attn_every} "
-             f"shared-block calls" if cfg.family == "hybrid" else f"{cfg.num_layers} layers")
-    log(f"  (b) {arch} served, {shape}, {cfg.dtype}, {n_params} parameters "
-        f"(init and serve {time.perf_counter() - t0:.2f} s): "
+    frames = (f", {serve_mod.ENCDEC_FRAMES} zero frames a batch" if cfg.family == "encdec"
+              else "")
+    log(f"  (b) {arch} served, {model_shape(cfg)}, {cfg.dtype}, {n_params} parameters "
+        f"(init and serve {time.perf_counter() - t0:.2f} s{frames}): "
         f"prefill_ms per batch {[(sh, round(ms, 3)) for sh, ms in seen['prefill_ms']]}, "
         f"decode_ms per token median {statistics.median(dec):.3f} (min {min(dec):.3f}, "
         f"max {max(dec):.3f}, {len(dec)} steps), tokens/s {stats['tokens'] / stats['wall_s']:.1f} "
         f"(wall_s {stats['wall_s']:.3f}), peak_memory_GB {peak / 1e9:.3f}; stats {stats}; "
-        f"ssd_stage1 launches per prefill {ssm_layers(cfg)}; first tokens "
-        f"{[r.out[:4] for r in done[:2]]}")
+        f"ssd_stage1 launches per prefill {ssm_layers(cfg)}{drop_note(routes, cfg, real)}; first "
+        f"tokens {[r.out[:4] for r in done[:2]]}")
     return seen["params"], cfg
+
+
+def lm_kimi(dev: torch.device) -> None:
+    """(b) kimi-k2-1t-a32b at full width, cut to ``KIMI_LAYERS`` layers, in
+    bf16 through ``Model.prefill`` and ``decode_step``: 4 x 1024 tokens,
+    KV caches of 1040 positions, 16 greedy steps; then its breakdown."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    cfg = family_cfg("kimi-k2-1t-a32b", KIMI_LAYERS)
+    model, pctx = build_model(cfg), ParallelCtx()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    bsz, s, steps = 4, 1024, 16
+    tokens = torch.as_tensor(np.random.default_rng(61).integers(0, cfg.vocab_size, size=(bsz, s)),
+                             device=dev)
+    with Routes() as routes:
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": tokens}, pctx, max_len=s + steps)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check_logits(logits, cfg)
+        routes.on = False
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out, dec = [], []
+        t_all = time.perf_counter()
+        for i in range(steps):
+            out.append(tok[:, 0].tolist())
+            pos = torch.full((bsz,), s + i, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx)
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+            check_logits(logits, cfg)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        wall = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(0 <= t < cfg.vocab_size for row in out for t in row), out
+    log(f"  (b) kimi-k2-1t-a32b at full width cut to {model_shape(cfg)} (of "
+        f"{get_config('kimi-k2-1t-a32b').num_layers}), bf16, {n_params} parameters (drawn in "
+        f"{init_s:.2f} s): prefill {bsz}x{s} {prefill_ms:.3f} ms (first call), decode_ms per "
+        f"token median {statistics.median(dec):.3f} (min {min(dec):.3f}, max {max(dec):.3f}, "
+        f"{steps} steps), tokens/s {bsz * steps / wall:.1f}, peak_memory_GB {peak / 1e9:.3f}"
+        f"{drop_note(routes, cfg)}; first tokens {[row[:2] for row in out[:4]]}")
+    del caches, logits
+    moe_breakdown(dev, params, cfg)
+    del params
+
+
+def encdec_frames(dev: torch.device, params: Any, cfg: Any) -> None:
+    """The encoder at its real length: one ``Model.prefill`` of 4 x 64
+    tokens against [4, frontend_tokens, d] frames from a seed, the
+    encoder's part of it (CUDA events around ``encode``), and 4 decode
+    steps, each of which projects the cross-attention's K/V from the
+    1500 encoder rows again in every decoder layer."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    model, pctx = build_model(cfg), ParallelCtx()
+    bsz, s, t = 4, 64, cfg.frontend_tokens
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(62).integers(0, cfg.vocab_size, size=(bsz, s)), device=dev),
+        **frames_of(cfg, bsz, t, 63, dev)}
+    with torch.inference_mode():
+        prefill = cuda_ms(lambda: model.prefill(params, batch, pctx, max_len=s + 4), reps=3,
+                          warmup=1)
+        encoder = cuda_ms(lambda: E.encode(params, batch["frames"], cfg, pctx), reps=3, warmup=1)
+        logits, caches = model.prefill(params, batch, pctx, max_len=s + 4)
+        check_logits(logits, cfg)
+        assert tuple(caches["enc_out"].shape) == (bsz, t, cfg.d_model)
+        dec = []
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        for i in range(4):
+            pos = torch.full((bsz,), s + i, dtype=torch.int32, device=dev)
+            ms, (logits, caches) = timed_cuda(
+                lambda: model.decode_step(params, caches, {"token": tok, "pos": pos}, pctx),
+                reps=1, warmup=0)
+            dec.append(ms)
+            check_logits(logits, cfg)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    log(f"  (b) {cfg.arch_id} at the real encoder length, frames [{bsz}, {t}, {cfg.d_model}] "
+        f"{cfg.dtype}, prompts {bsz}x{s}: prefill {prefill:.3f} ms (CUDA events), of which the "
+        f"encoder {encoder:.3f} ms ({encoder / prefill:.1%}) and the decoder over the prompt "
+        f"{prefill - encoder:.3f}; decode steps against {t} encoder rows (ms) "
+        f"{[round(ms, 3) for ms in dec]}")
+
+
+def moe_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
+    """Where one bf16 prefill of 4 x 1024 tokens and one decode step at
+    batch 4 (after a 1024-token prompt; KV caches of 1040 positions) go for
+    an MoE model: each part timed on its own with CUDA events on random
+    inputs of its shape, one layer's part times the layers; the MoE layer
+    split into its expert products (three batched products over E at the
+    call's capacity), its shared experts and the rest of it (router, sort,
+    dispatch, combine); the rest of the model by difference."""
+    from repro_torch.models.layers.attention import attention_apply, make_kv_cache
+    from repro_torch.models.layers.embedding import logits_out
+    from repro_torch.models.layers.mlp import mlp_apply
+    from repro_torch.models.layers.moe import _capacity, moe_apply
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    model, pctx = build_model(cfg), ParallelCtx()
+    layers = cfg.num_layers
+    layer = params.layers[0]
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    gen = torch.Generator(device=dev).manual_seed(71)
+    bf16 = params.emb.embed.dtype
+    bsz, t_cache = 4, 1040
+    with torch.inference_mode():
+        for s in (1024, 1):
+            tokens = torch.randint(0, cfg.vocab_size, (bsz, s), generator=gen, device=dev)
+            if s > 1:
+                total = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, pctx,
+                                                      max_len=t_cache), reps=3, warmup=1)
+                index = torch.zeros(bsz, dtype=torch.int32, device=dev)
+                positions = torch.arange(s, device=dev).expand(bsz, s)
+            else:
+                prompt = torch.randint(0, cfg.vocab_size, (bsz, 1024), generator=gen, device=dev)
+                _, caches = model.prefill(params, {"tokens": prompt}, pctx, max_len=t_cache)
+                index = torch.full((bsz,), 1024, dtype=torch.int32, device=dev)
+                positions = index[:, None]
+                total = cuda_ms(lambda: model.decode_step(
+                    params, caches, {"token": tokens, "pos": index}, pctx), reps=10, warmup=2)
+                del caches
+            x = torch.randn(bsz, s, d, generator=gen, device=dev).to(bf16)
+            cap = _capacity(bsz * s, cfg)
+            xe = torch.randn(e, cap, d, generator=gen, device=dev).to(bf16)
+            he = torch.randn(e, cap, f, generator=gen, device=dev).to(bf16)
+            moe = layer.moe
+            parts = {}
+            cache = make_kv_cache(cfg, bsz, t_cache, bf16, device=dev)
+            parts["attention (with its projections)"] = cuda_ms(
+                lambda: attention_apply(layer.attn, x, positions, cfg, pctx, cache=cache,
+                                        cache_index=index), reps=5) * layers
+            whole = cuda_ms(lambda: moe_apply(moe, x, cfg, pctx), reps=5) * layers
+            parts["MoE expert products"] = cuda_ms(
+                lambda: (torch.bmm(xe, moe.w1), torch.bmm(xe, moe.w3), torch.bmm(he, moe.w2)),
+                reps=5) * layers
+            parts["MoE shared experts"] = (cuda_ms(
+                lambda: mlp_apply(moe.shared, x, "silu_gated", pctx), reps=5) * layers
+                if moe.shared is not None else 0.0)
+            parts["MoE router, sort, dispatch, combine"] = (
+                whole - parts["MoE expert products"] - parts["MoE shared experts"])
+            parts["logits"] = cuda_ms(lambda: logits_out(params.emb, x, cfg, pctx), reps=5)
+            parts["rest (norms, embedding, residuals, launches)"] = total - sum(parts.values())
+            del cache
+            label = f"prefill {bsz}x{s}" if s > 1 else f"decode step, batch {bsz}"
+            log(f"  where the time goes, {cfg.arch_id} {label} (bf16, {model_shape(cfg)}, "
+                f"capacity {cap} slots an expert): total_ms={total:.3f}; MoE layer "
+                f"{whole:.3f} ({whole / total:.1%}); "
+                + "; ".join(f"{k}={v:.3f} ({v / total:.1%})" for k, v in parts.items()))
 
 
 def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:

@@ -3,8 +3,9 @@ changed, so ``get_config`` and ``list_archs`` give the reference's answers.
 
 Importing this package registers every architecture; use
 ``repro_torch.configs.base.get_config("<arch-id>")`` or ``--arch <id>`` on
-the launcher. The reference's ``shapes.py`` (the dry-run's input specs,
-built on JAX) is not copied.
+the launcher. ``paper_tridiag`` holds the paper's own workload (sizes,
+m = 10, stream candidates, fp64). The reference's ``shapes.py`` (the
+dry-run's input specs, built on JAX) is not copied.
 """
 
 from repro_torch.configs.base import ArchConfig, get_config, list_archs, register

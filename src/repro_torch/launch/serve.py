@@ -7,11 +7,15 @@ done).
     python -m repro_torch.launch.serve --arch mamba2-1.3b           # smoke size
     python -m repro_torch.launch.serve --arch zamba2-7b --full      # real model
     python -m repro_torch.launch.serve --arch qwen3-4b --full
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full
+    python -m repro_torch.launch.serve --arch whisper-medium --full
 
-It serves the ``ssm``, ``dense``, ``vlm`` and ``hybrid`` families, on the
-CUDA device unless ``--device cpu`` is given. For the ``ssm`` and ``hybrid``
-families a padded prompt longer than the config's ``ssm_chunk`` must be a
-multiple of it, as in the reference (``ValueError`` otherwise). KV caches
+It serves every family (``ssm``, ``dense``, ``moe``, ``vlm``, ``hybrid``
+and ``encdec``), on the CUDA device unless ``--device cpu`` is given. The
+encoder-decoder's batches carry 64 zero frames, as in the reference, and
+its ``dec_pos`` table holds ``max_len`` positions. For the ``ssm`` and
+``hybrid`` families a padded prompt longer than the config's ``ssm_chunk``
+must be a multiple of it, as in the reference (``ValueError`` otherwise). KV caches
 hold ``max_len`` positions: a batch's padded prompt (with the VLM's
 ``frontend_tokens``) plus its new tokens should fit, as the cache's write
 position is clamped to its last slot, as in the reference.
@@ -33,6 +37,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
+
+
+#: The encoder-decoder's frames a batch, as the reference's launcher gives it.
+ENCDEC_FRAMES = 64
 
 
 @dataclass
@@ -60,7 +68,8 @@ def serve(
     """Serve ``requests``; returns them with ``out`` filled, and ``stats``
     (``prefills``, ``decode_steps``, ``tokens``, ``wall_s``). Weights are
     random from ``seed`` unless ``params`` (already on ``device``) is given.
-    The VLM's batches carry zero patches of ``[B, frontend_tokens, d]``."""
+    The VLM's batches carry zero patches of ``[B, frontend_tokens, d]``, the
+    encoder-decoder's zero frames of ``[B, ENCDEC_FRAMES, d]``."""
     if use_mesh:
         raise NotImplementedError(
             f"serve(use_mesh={use_mesh!r}): the port serves on one device; the "
@@ -73,7 +82,7 @@ def serve(
     model = build_model(cfg)
     pctx = ParallelCtx(mesh=None)
     if params is None:
-        params = model.init(seed, device=dev)
+        params = model.init(seed, device=dev, max_dec_len=max_len)
     else:
         where = {p.device for p in params.parameters()}
         if where != {dev}:
@@ -95,6 +104,9 @@ def serve(
         if cfg.family == "vlm":
             batch["patches"] = torch.zeros(len(active), cfg.frontend_tokens, cfg.d_model,
                                            dtype=getattr(torch, cfg.dtype), device=dev)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(len(active), ENCDEC_FRAMES, cfg.d_model,
+                                          dtype=getattr(torch, cfg.dtype), device=dev)
         logits, caches = prefill(params, batch)
         stats["prefills"] += 1
         next_tok = torch.argmax(logits[:, -1:, :], dim=-1)
@@ -135,17 +147,19 @@ def main() -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
-    # The reference's 4 ... 23 tokens; for the SSM families at most one
-    # chunk, so any padded batch length is allowed.
+    # The reference's 4 ... 23 tokens (every family but the SSM ones); for
+    # the SSM families at most one chunk, so any padded batch length is
+    # allowed.
     lo, hi = (1, cfg.ssm_chunk + 1) if cfg.family in ("ssm", "hybrid") else (4, 24)
     reqs = [
         Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(rng.integers(lo, hi))),
                 max_new=args.max_new)
         for i in range(args.requests)
     ]
-    # KV caches long enough for the longest prompt and its new tokens.
-    max_len = max(256, max((len(r.prompt) for r in reqs), default=0) + cfg.frontend_tokens
-                  + args.max_new)
+    # KV caches long enough for the longest prompt (behind the VLM's
+    # patches) and its new tokens.
+    patches = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    max_len = max(256, max((len(r.prompt) for r in reqs), default=0) + patches + args.max_new)
     done, stats = serve(arch=args.arch, requests=reqs, batch_slots=args.slots, max_len=max_len,
                         smoke=not args.full, seed=args.seed, device=args.device)
     dev = resolve_device(args.device)

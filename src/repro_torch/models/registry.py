@@ -1,13 +1,15 @@
-"""Uniform Model facade, the counterpart of ``repro.models.registry`` for
-the ``ssm``, ``dense``, ``vlm`` and ``hybrid`` families.
+"""Uniform Model facade, the counterpart of ``repro.models.registry``, for
+every family: ``ssm``, ``dense``, ``moe`` and ``vlm`` through
+:mod:`~repro_torch.models.transformer`, ``hybrid`` and ``encdec`` through
+their own assemblies.
 
 Batch dict conventions (as in the reference):
-  prefill : tokens [B,S] integer (+ patches [B,P,D] for vlm)
+  prefill : tokens [B,S] integer (+ patches [B,P,D] for vlm, frames
+            [B,T,D] for encdec)
   decode  : token [B,1] integer, pos [B] integer (+ caches from
             make_caches/prefill)
 
-``moe`` and ``encdec`` raise ``NotImplementedError``; ``train_logits``
-waits for the training slice.
+``train_logits`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
@@ -36,15 +39,20 @@ class Model:
             raise T.not_ported(f"Model for family {self.cfg.family!r} ({self.cfg.arch_id})")
 
     # ------------------------------------------------------------- init -----
-    def init(self, seed: Union[int, torch.Generator], *, device: DeviceLike = "cuda") -> nn.Module:
+    def init(self, seed: Union[int, torch.Generator], *, device: DeviceLike = "cuda",
+             max_dec_len: int = 4096) -> nn.Module:
         """Random weights from ``seed`` (an int, or a ``torch.Generator``
         whose device then decides where they are made), drawn on the device
-        they live on: a :class:`~repro_torch.models.hybrid.HybridLM` for the
-        hybrid family, else a :class:`~repro_torch.models.transformer.LM`."""
+        they live on: an :class:`~repro_torch.models.encdec.EncDec` (its
+        ``dec_pos`` of ``max_dec_len`` positions) for the encdec family, a
+        :class:`~repro_torch.models.hybrid.HybridLM` for the hybrid family,
+        else a :class:`~repro_torch.models.transformer.LM`."""
         if isinstance(seed, torch.Generator):
             gen = seed
         else:
             gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        if self.cfg.family == "encdec":
+            return E.init_encdec(gen, self.cfg, max_dec_len=max_dec_len)
         if self.cfg.family == "hybrid":
             return H.init_hybrid(gen, self.cfg)
         return T.init_lm(gen, self.cfg)
@@ -53,6 +61,8 @@ class Model:
     def make_caches(self, batch: int, max_len: int, *,
                     device: DeviceLike = "cuda") -> T.Caches:
         dev = resolve_device(device)
+        if self.cfg.family == "encdec":
+            return E.make_encdec_caches(self.cfg, batch, max_len, device=dev)
         if self.cfg.family == "hybrid":
             return H.make_hybrid_caches(self.cfg, batch, max_len, device=dev)
         return T.make_decoder_caches(self.cfg, batch, max_len, device=dev)
@@ -64,13 +74,21 @@ class Model:
     ) -> Tuple[Tensor, T.Caches]:
         """Run the prompt, returning (logits, caches primed at position S).
         KV caches hold ``max_len`` positions (default S); the VLM's patches
-        count towards S."""
+        count towards S. The encdec family encodes ``batch["frames"]`` and
+        keeps the encoder's output in ``caches["enc_out"]``."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         max_len = max_len or s
         caches = self.make_caches(b, max_len, device=tokens.device)
         zero = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+        if cfg.family == "encdec":
+            enc_out = E.encode(params, batch["frames"], cfg, pctx)
+            logits, new_caches = E.decode(params, tokens, enc_out, cfg, pctx,
+                                          caches=caches, cache_index=zero)
+            assert new_caches is not None
+            new_caches["enc_out"] = enc_out
+            return logits, new_caches
         if cfg.family == "hybrid":
             logits, new_caches, _ = H.hybrid_forward(
                 params, tokens, cfg, pctx, caches=caches, cache_index=zero, want_state=True)
@@ -90,6 +108,14 @@ class Model:
         token is written at; the SSM state carries its own)."""
         cfg = self.cfg
         token, pos = batch["token"], batch["pos"]
+        if cfg.family == "encdec":
+            enc_out = caches["enc_out"]
+            logits, new_caches = E.decode(params, token, enc_out, cfg, pctx,
+                                          positions=pos[:, None], caches={"kv": caches["kv"]},
+                                          cache_index=pos)
+            assert new_caches is not None
+            new_caches["enc_out"] = enc_out
+            return logits, new_caches
         forward = H.hybrid_forward if cfg.family == "hybrid" else T.lm_forward
         logits, new_caches, _ = forward(
             params, token, cfg, pctx, positions=pos[:, None], caches=caches,

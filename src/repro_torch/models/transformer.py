@@ -1,6 +1,7 @@
 """Decoder-only LM assembly, the counterpart of ``repro.models.transformer``
-for the ``ssm``, ``dense`` and ``vlm`` families (Mamba-2, dense attention
-with an MLP, and the VLM's text stack behind a patch connector).
+for the ``ssm``, ``dense``, ``moe`` and ``vlm`` families (Mamba-2, dense
+attention with an MLP or a Mixture-of-Experts, and the VLM's text stack
+behind a patch connector).
 
 The reference scans its layers (``jax.lax.scan`` over stacked parameters,
 gemma2's local/global alternation over pairs); here the layers are an
@@ -8,8 +9,9 @@ gemma2's local/global alternation over pairs); here the layers are an
 the window ``_windows(cfg)[i % len(_windows(cfg))]``. Caches are
 ``{"ssm": [SSMState, ...]}`` or ``{"kv": [KVCache, ...]}``, one entry per
 layer (the reference stacks them as ``[n_groups, g, ...]`` leaves; see
-:mod:`repro_torch.models.convert`). The ``moe`` family is still to be
-ported and raises ``NotImplementedError``.
+:mod:`repro_torch.models.convert`). The ``hybrid`` and ``encdec`` families
+have their own assemblies (:mod:`~repro_torch.models.hybrid`,
+:mod:`~repro_torch.models.encdec`).
 """
 
 from __future__ import annotations
@@ -35,20 +37,22 @@ from repro_torch.models.layers.embedding import (
     logits_out,
 )
 from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
+from repro_torch.models.layers.moe import MoE, init_moe, moe_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
 from repro_torch.parallel.ctx import ParallelCtx
 
 Tensor = torch.Tensor
 Caches = Dict[str, Any]
-#: The LM families the port serves.
-PORTED_FAMILIES = ("ssm", "dense", "vlm", "hybrid")
+#: The LM families the port serves: every family of ``ArchConfig``.
+PORTED_FAMILIES = ("ssm", "dense", "moe", "vlm", "hybrid", "encdec")
+#: The families this module assembles.
+DECODER_FAMILIES = ("ssm", "dense", "moe", "vlm")
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: the port serves the {', '.join(PORTED_FAMILIES)} families so far; "
-        f"moe and encdec are still to be ported (ROADMAP, Queue 1)"
+        f"{what}: the port serves the {', '.join(PORTED_FAMILIES)} families"
     )
 
 
@@ -57,26 +61,28 @@ def _dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in ("ssm", "dense", "vlm"):
+    if cfg.family not in DECODER_FAMILIES:
         raise not_ported(f"{what} for family {cfg.family!r}")
 
 
 class Block(nn.Module):
     """One block: RMSNorm then the Mamba-2 layer (``ssm`` family), or
-    RMSNorm, attention, RMSNorm and the MLP, with gemma2's post-norms
-    (``post_ln1``/``post_ln2``) where the config has them. Sub-modules a
-    family does not use are ``None``."""
+    RMSNorm, attention, RMSNorm and the MLP (the MoE for the ``moe``
+    family), with gemma2's post-norms (``post_ln1``/``post_ln2``) where the
+    config has them. Sub-modules a family does not use are ``None``."""
 
     ssm: Optional[SSM]
     attn: Optional[Attention]
     ln2: Optional[RMSNorm]
     mlp: Optional[MLP]
+    moe: Optional[MoE]
     post_ln1: Optional[RMSNorm]
     post_ln2: Optional[RMSNorm]
 
     def __init__(self, ln1: RMSNorm, ssm: Optional[SSM] = None, *,
                  attn: Optional[Attention] = None, ln2: Optional[RMSNorm] = None,
-                 mlp: Optional[MLP] = None, post_ln1: Optional[RMSNorm] = None,
+                 mlp: Optional[MLP] = None, moe: Optional[MoE] = None,
+                 post_ln1: Optional[RMSNorm] = None,
                  post_ln2: Optional[RMSNorm] = None) -> None:
         super().__init__()
         self.ln1 = ln1
@@ -84,6 +90,7 @@ class Block(nn.Module):
         self.attn = attn
         self.ln2 = ln2
         self.mlp = mlp
+        self.moe = moe
         self.post_ln1 = post_ln1
         self.post_ln2 = post_ln2
 
@@ -106,17 +113,18 @@ class LM(nn.Module):
 
 # --------------------------------------------------------------- blocks -----
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Block:
-    """One block of the arch's family (attention + MLP, or SSM)."""
+    """One block of the arch's family (attention + MLP or MoE, or SSM)."""
     _check_family(cfg, "init_block")
     dev = gen.device
     d = cfg.d_model
     if cfg.family == "ssm":
         return Block(RMSNorm(d, device=dev), init_ssm(gen, cfg, dtype))
     attn = init_attention(gen, cfg, dtype)
-    mlp = init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype)
+    ffn = ({"moe": init_moe(gen, cfg, dtype)} if cfg.family == "moe"
+           else {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype)})
     post = ({"post_ln1": RMSNorm(d, device=dev), "post_ln2": RMSNorm(d, device=dev)}
             if cfg.post_block_norm else {})
-    return Block(RMSNorm(d, device=dev), attn=attn, ln2=RMSNorm(d, device=dev), mlp=mlp, **post)
+    return Block(RMSNorm(d, device=dev), attn=attn, ln2=RMSNorm(d, device=dev), **ffn, **post)
 
 
 def block_apply(
@@ -131,16 +139,17 @@ def block_apply(
     ssm_state: Optional[SSMState],
     cache_index: Optional[Tensor],
     want_state: bool,
-) -> Tuple[Tensor, Optional[KVCache], Optional[SSMState]]:
-    """One block; returns (x, new KV cache, new SSM state). The reference's
-    fourth output, the MoE auxiliary loss, is zero for these families."""
+) -> Tuple[Tensor, Optional[KVCache], Optional[SSMState], Tensor]:
+    """One block; returns (x, new KV cache, new SSM state, the MoE
+    auxiliary loss), the loss zero outside the ``moe`` family."""
     _check_family(cfg, "block_apply")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h, new_state = ssm_apply(
             params.ssm, rms_norm(x, params.ln1, cfg.norm_eps), cfg, pctx,
             state=ssm_state, return_state=want_state,
         )
-        return x + h, None, new_state
+        return x + h, None, new_state, aux
 
     h = rms_norm(x, params.ln1, cfg.norm_eps)
     h, new_kv = attention_apply(
@@ -151,10 +160,14 @@ def block_apply(
         h = rms_norm(h, params.post_ln1, cfg.norm_eps)
     x = x + h
 
-    h = mlp_apply(params.mlp, rms_norm(x, params.ln2, cfg.norm_eps), cfg.activation, pctx)
+    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe_apply(params.moe, h, cfg, pctx)
+    else:
+        h = mlp_apply(params.mlp, h, cfg.activation, pctx)
     if cfg.post_block_norm:
         h = rms_norm(h, params.post_ln2, cfg.norm_eps)
-    return x + h, new_kv, None
+    return x + h, new_kv, None, aux
 
 
 # ----------------------------------------------------------------- model ----
@@ -170,8 +183,8 @@ def _windows(cfg: ArchConfig) -> Tuple[Optional[int], ...]:
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> LM:
     """Random weights drawn from ``gen`` on ``gen``'s device, in the
-    config's dtype (norm scales and the SSM's dt_bias/a_log/d_skip in fp32,
-    as in the reference)."""
+    config's dtype (norm scales, the SSM's dt_bias/a_log/d_skip and the MoE
+    router in fp32, as in the reference)."""
     _check_family(cfg, "init_lm")
     if cfg.num_layers % _group_size(cfg):
         raise ValueError(f"{cfg.num_layers} layers do not split into groups of "
@@ -197,14 +210,15 @@ def _stack_layers_apply(
     caches: Optional[Caches] = None,
     cache_index: Optional[Tensor] = None,
     want_state: bool = False,
-) -> Tuple[Tensor, Optional[Caches]]:
+) -> Tuple[Tensor, Optional[Caches], Tensor]:
     windows = _windows(cfg)
     kv_in = caches.get("kv") if caches is not None else None
     ssm_in = caches.get("ssm") if caches is not None else None
     new_kvs: List[KVCache] = []
     new_states: List[SSMState] = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.layers):
-        x, new_kv, new_state = block_apply(
+        x, new_kv, new_state, a = block_apply(
             layer, x, positions, cfg, pctx,
             window=windows[i % len(windows)],
             kv_cache=kv_in[i] if kv_in is not None else None,
@@ -212,6 +226,7 @@ def _stack_layers_apply(
             cache_index=cache_index,
             want_state=want_state,
         )
+        aux = aux + a
         if new_kv is not None:
             new_kvs.append(new_kv)
         if new_state is not None:
@@ -221,7 +236,7 @@ def _stack_layers_apply(
         out["kv"] = new_kvs
     if new_states:
         out["ssm"] = new_states
-    return x, (out or None)
+    return x, (out or None), aux
 
 
 def lm_forward(
@@ -236,8 +251,9 @@ def lm_forward(
     cache_index: Optional[Tensor] = None,
     want_state: bool = False,
 ) -> Tuple[Tensor, Optional[Caches], Tensor]:
-    """Shared forward: returns (logits, new_caches, aux_loss). These
-    families have no auxiliary loss (zero, as in the reference). The VLM's
+    """Shared forward: returns (logits, new_caches, aux_loss), the MoE
+    auxiliary loss summed over the layers (zero outside the ``moe``
+    family, as in the reference). The VLM's
     ``patch_embeds`` [B, P, d] go through the connector in front of the
     text; positions default to ``arange(S)`` over the whole sequence."""
     b = tokens.shape[0]
@@ -248,10 +264,9 @@ def lm_forward(
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    x, new_caches = _stack_layers_apply(params, x, positions, cfg, pctx, caches=caches,
-                                        cache_index=cache_index, want_state=want_state)
+    x, new_caches, aux = _stack_layers_apply(params, x, positions, cfg, pctx, caches=caches,
+                                             cache_index=cache_index, want_state=want_state)
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits_out(params.emb, x, cfg, pctx), new_caches, aux
 
 

@@ -229,9 +229,20 @@ def test_parallel_ctx_is_single_device():
         ParallelCtx(mesh=object())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "qwen3-4b", "gemma2-27b",
+                                  "codeqwen1.5-7b", "nemotron-4-340b", "internvl2-2b",
+                                  "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "whisper-medium"])
 def test_configs_are_the_references(arch):
     ref, port = ref_get_config(arch), get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.param_count() == ref.param_count()
     assert dataclasses.asdict(port.smoke()) == dataclasses.asdict(ref.smoke())
+
+
+def test_paper_tridiag_config_is_the_references():
+    from repro.configs import paper_tridiag as ref_paper
+    from repro_torch.configs import paper_tridiag
+
+    assert dataclasses.asdict(paper_tridiag.CONFIG) == dataclasses.asdict(ref_paper.CONFIG)
+    assert dataclasses.asdict(paper_tridiag.PaperTridiagConfig()) == dataclasses.asdict(
+        ref_paper.PaperTridiagConfig())
