@@ -5,7 +5,7 @@
 
 Phases:
 
-1. ``build``: compile the seven CUDA sources in ``src/repro_torch/csrc``
+1. ``build``: compile the eight CUDA sources in ``src/repro_torch/csrc``
    (one nvcc each, all at once) and print ptxas's register report.
 2. ``kernels``: each kernel against its plain PyTorch version (the
    reference stage) on the card, in fp64 and fp32, at shapes the main path
@@ -45,7 +45,12 @@ Phases:
    count m does not divide with NaN past it, ignored ends and identity
    rows past P. The SSD stage is held against its plain version (on the CPU)
    at chunk lengths 1 ... 1024 and ragged widths, with its fp32-FMA and
-   split-TF32 bounds.
+   split-TF32 bounds. The SSD stage's backward kernel (``ssd_stage1_bwd``,
+   the port's own: the TPU kernel has none) is held against the plain
+   backward at both models' widths (G = 16, Q = 256 and G = 4, Q = 197),
+   each output within ``SSD_BWD_TOL`` of its largest magnitude, twice for
+   the same bits, with its fp32-FMA bound; and at its edges (chunk lengths
+   1 ... 1024, ragged P and N) against the plain backward on the CPU.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -160,6 +165,22 @@ Phases:
    the time of one 4 x 1024 prefill and of one decode step goes, for
    mamba2-1.3b, zamba2-7b, moonshot-v1-16b-a3b and kimi-k2 (the MoE layer
    split into its expert products, shared experts and the rest of it).
+8. ``train``: the training path, ``repro_torch.launch.train.run_training``
+   / ``make_train_step`` → ``Model.train_logits`` → the blocks (the SSD
+   stage through ``SSDStage1Function``: ``ssd_stage1`` forward,
+   ``ssd_stage1_bwd`` backward) → AdamW. (a) Full width cut to 2 layers,
+   fp32, TF32 off, the card against the CPU on the same weights and batch
+   (2 x 512 tokens): mamba2-1.3b and qwen3-4b's loss, every gradient and
+   the step one AdamW update makes to every parameter (tolerances in
+   ``train_parity``);
+   then ``run_training`` of mamba2-1.3b (2 layers) for 10 steps, the same
+   run preempted by SIGTERM, checkpointed and resumed, whose losses must be
+   the unbroken run's. (b) mamba2-1.3b at full size (48 layers, bf16) through
+   ``run_training`` at 4 x 1024 tokens a step for 20 steps: finite losses
+   whose last 5 average below the first 5, one forward and one backward
+   SSD launch per layer a step (the counts zeroed just before the run),
+   peak memory; then one step's split into forward, backward and optimizer
+   (CUDA events) and its device profile.
 
 It exits non-zero when there is no CUDA device, when the port cannot be
 imported, or when any phase fails. The line before the last is the
@@ -200,11 +221,30 @@ PROFILE_ATTEMPTS = 5
 # incomplete trace.
 PROFILE_PAD = 64
 M = 10
-ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm")
+ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm", "train")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
 LM_KERNELS = ("ssd_stage1",)
+# The training path launches the SSD kernel forward and backward.
+TRAIN_KERNELS = ("ssd_stage1", "ssd_stage1_bwd")
+# The backward kernel's tolerance against its plain version: each output's
+# largest error within this share of its largest magnitude. A gradient
+# sums hundreds of terms (d cum takes differences of such sums), so an
+# element's error follows the sum's magnitude, not its own: in fp32 the
+# plain version itself is 4e-7 ... 4e-6 of the largest magnitude off fp64.
+SSD_BWD_TOL = 1e-4
+# The train phase, part (a): the card against the CPU at full width, cut
+# to TRAIN_LAYERS layers, fp32, batch TRAIN_BATCH x TRAIN_SEQ, one AdamW
+# step at a constant TRAIN_LR (large enough that one fp32 ulp of a
+# parameter stays far below the step it takes); and a run of
+# TRAIN_RESUME_STEPS steps preempted and resumed from its checkpoint
+# (mamba2-1.3b).
+TRAIN_PARITY = ("mamba2-1.3b", "qwen3-4b")
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 2, 512, 1e-3
+TRAIN_RESUME_STEPS, TRAIN_PREEMPT_AT = 10, 6
+# Part (b): mamba2-1.3b at full size in bf16 through run_training.
+TRAIN_FULL = dict(arch="mamba2-1.3b", global_batch=4, seq_len=1024, steps=20, peak_lr=3e-4)
 # The main path's launches replayed from CUDA graphs, by kernel (main_phase).
 REPLAYED: Dict[str, int] = {}
 # The lm phase's card-against-CPU runs, part (a): (arch, layers, prompt
@@ -506,6 +546,9 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
                            "src/repro/kernels/tridiag_matvec/matvec.py:13"),
         "ssd_stage1": ("src/repro_torch/csrc/ssd_stage1.cu",
                        "src/repro/kernels/ssd_stage1/ssd1.py:28"),
+        # The port's own backward of that kernel: the TPU kernel has none.
+        "ssd_stage1_bwd": ("src/repro_torch/csrc/ssd_stage1_bwd.cu",
+                           "src/repro/kernels/ssd_stage1/ssd1.py:28"),
     }
     rows: List[Dict[str, Any]] = []
 
@@ -513,7 +556,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
               nbytes: float, ops: float, reps: int = 20, plain_reps: int = 5,
               plain_warmup: int = 2,
               library: Optional[Callable[[], Any]] = None,
-              peak: Optional[float] = None, host: bool = False) -> Tuple[Any, float]:
+              peak: Optional[float] = None, host: bool = False,
+              compare: Optional[Callable[[Any, Any], None]] = None) -> Tuple[Any, float]:
         """Run, compare and time one kernel against its plain version (and
         one PyTorch call computing the same function, where there is one);
         returns the kernel's output and its median ms. ``ms`` (and
@@ -523,14 +567,19 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         that runs the kernel's operations (default: the CUDA cores' rate for
         ``dtype``). With ``host``, the row also gets ``enqueue_ms``, the
         host's time for the wrapper to return from an idle card, which
-        accounts for the gap between ``ms`` and ``device_ms``."""
+        accounts for the gap between ``ms`` and ``device_ms``. ``compare``
+        holds one output against the plain version's (default: the
+        tolerance ladder of ``dtype``)."""
         got = kernel()
         plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
         for g, w in pairs:
             assert tuple(g.shape) == tuple(w.shape), (name, tuple(g.shape), tuple(w.shape))
-            assert_allclose_by_dtype(g, w, dtype)
+            if compare is None:
+                assert_allclose_by_dtype(g, w, dtype)
+            else:
+                compare(g, w)
         err = max(max_err(g, w) for g, w in pairs)
         ms = cuda_ms(kernel, reps=reps)
         dev_ms = device_ms(kernel)
@@ -1102,6 +1151,33 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
             del u, dac, b, c
     ssd_edges(dev)
 
+    # The backward kernel at the same shapes: a training step's G = 16
+    # cells of Q = 256 (4 x 1024 tokens) and the odd chunk, at both models'
+    # widths, against the plain backward on the card, within SSD_BWD_TOL of
+    # each output's largest magnitude. fp32 FMAs on the CUDA cores: its
+    # bound is its operations at 67 TFLOP/s; the split-TF32 bound on the
+    # tensor cores (the forward's unit, fp32 accuracy from three TF32
+    # products) is printed beside. Two calls give the same bits (no atomics).
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_backward_cuda
+    from repro_torch.models.layers.ssm import ssd_stage1_backward
+
+    for nh, p, n in ((64, 64, 128), (112, 64, 64)):
+        for g, q in ((16, 256), (4, 197)):
+            ins = ssd_bwd_inputs(dev, g, q, nh, p, n, seed=g + q + 1)
+            nbytes, macs = ssd_bwd_cost(g, q, nh, p, n)
+            got, ms = check(f"ssd_stage1_bwd/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
+                            lambda: ssd_stage1_backward_cuda(*ins), lambda: ssd_stage1_backward(*ins),
+                            nbytes, 2 * macs, reps=10, compare=close_to_max)
+            fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
+            tc_ms, tc_by = bound(nbytes, 6 * macs, TF32_TC_FLOPS)
+            log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, share "
+                f"{fma_ms / ms:.3f}); split-TF32 bound {tc_ms:.4f} ms by {tc_by} (tensor cores, 3 x "
+                f"the operations at 495 TFLOP/s, share {tc_ms / ms:.3f})")
+            again = ssd_stage1_backward_cuda(*ins)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), "ssd_stage1_bwd: not deterministic"
+            del ins, got, again
+    ssd_bwd_edges(dev)
+
     # The whole chunked scan through the kernel against the plain scan, with
     # and without an incoming state, at 1e-4 (tests/test_kernel_ssd.py), at
     # both models' widths.
@@ -1143,6 +1219,67 @@ def ssd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
     macs = g * (causal * n + nh * causal * p + nh * q * p * n)
     nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
     return nbytes, macs
+
+
+def ssd_bwd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
+                   seed: int) -> Tuple[torch.Tensor, ...]:
+    """The backward's operands: SSD Stage 1's inputs (``ssd_inputs``) and
+    the incoming gradients dy [G, Q, H, P] and ds [G, H, P, N]."""
+    rng = np.random.default_rng(seed + 7)
+    dy = torch.as_tensor(rng.standard_normal((g, q, nh, p)), device=dev).float()
+    ds = torch.as_tensor(rng.standard_normal((g, nh, p, n)), device=dev).float()
+    return (*ssd_inputs(dev, g, q, nh, p, n, seed), dy, ds)
+
+
+def ssd_bwd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
+    """Bytes (inputs u, dac, b, c, dy, ds read once, du, ddac, db, dc
+    written once) and multiply-adds of the backward: the causal half of the
+    scores, of dC and of dSᵀ·C (3 Q²N/2), of W and of the dy term of du
+    (2 H Q² P/2), and ds·B and uᵀ·ds (2 H Q P N)."""
+    causal = q * (q + 1) // 2
+    macs = g * (3 * causal * n + 2 * nh * causal * p + 2 * nh * q * p * n)
+    nbytes = 4 * g * (3 * q * nh * p + 2 * q * nh + 4 * q * n + nh * p * n)
+    return nbytes, macs
+
+
+def close_to_max(got: torch.Tensor, want: torch.Tensor, tol: float = SSD_BWD_TOL) -> None:
+    """``got`` within ``tol`` of ``want``'s largest magnitude."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = max_err(got, want) if want.numel() else 0.0
+    assert err <= tol * scale, f"max_abs_err {err:.3e} above {tol} x {scale:.3e}"
+
+
+def ssd_bwd_edges(dev: torch.device) -> None:
+    """The backward kernel against its plain version on the CPU (see
+    ``ssd_edges``) at chunk lengths 1 ... 1024, ragged tiles of P (130: three
+    column chunks) and N (200, 36, 6) and odd head counts; then at Q = 1024
+    the kernel and the plain version on the card against an fp64 plain
+    version on the card."""
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_backward_cuda
+    from repro_torch.models.layers.ssm import ssd_stage1_backward
+
+    shapes = [(2, q, 64, 64, 128) for q in (1, 7, 64, 197, 256)] + [(1, 1024, 64, 64, 128)]
+    shapes += [(3, 97, 3, 20, 36), (2, 130, 2, 130, 200), (2, 33, 4, 6, 6)]
+    errs = []
+    for i, sh in enumerate(shapes):
+        ins = ssd_bwd_inputs(dev, *sh, seed=950 + i)
+        got = ssd_stage1_backward_cuda(*ins)
+        want = ssd_stage1_backward(*(t.cpu() for t in ins))
+        for gt, wt in zip(got, want):
+            assert tuple(gt.shape) == tuple(wt.shape), (sh, tuple(gt.shape), tuple(wt.shape))
+            close_to_max(gt, wt)
+        errs.append(max(max_err(gt, wt) / max(float(wt.abs().max()), 1e-30)
+                        for gt, wt in zip(got, want)))
+    log("  ssd_stage1_bwd at the edges against the plain version on the CPU, (G, Q, H, P, N) -> "
+        "largest error over the largest magnitude (du, ddac, db, dc): "
+        + "; ".join(f"{sh} {e:.3e}" for sh, e in zip(shapes, errs)))
+    ins = ssd_bwd_inputs(dev, 1, 1024, 64, 64, 128, seed=950 + shapes.index((1, 1024, 64, 64, 128)))
+    want = ssd_stage1_backward(*(t.double() for t in ins))
+    for label, got in (("kernel", ssd_stage1_backward_cuda(*ins)),
+                       ("plain on the card", ssd_stage1_backward(*ins))):
+        rel = [max_err(gt, wt) / float(wt.abs().max()) for gt, wt in zip(got, want)]
+        log(f"    Q=1024, against fp64 on the card: {label} largest error over the largest "
+            f"magnitude du {rel[0]:.3e} ddac {rel[1]:.3e} db {rel[2]:.3e} dc {rel[3]:.3e}")
 
 
 def ssd_edges(dev: torch.device) -> None:
@@ -2864,6 +3001,312 @@ def lm_breakdown(dev: torch.device, params: Any, cfg: Any) -> None:
                 + "; ".join(f"{k}={v:.3f} ({v / total:.1%})" for k, v in parts.items()))
 
 
+# -------------------------------------------------------------------- train --
+def train_phase(dev: torch.device) -> Dict[str, int]:
+    """The training path on the card; returns the SSD kernels' launches over
+    part (b), the run of ``run_training`` at full size (the counts are zeroed
+    just before it and read just after)."""
+    import gc
+
+    log(f"  torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    for arch in TRAIN_PARITY:
+        train_parity(dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_resume(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = train_full(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_breakdown(dev)
+    return launches
+
+
+def counts_of(names: Tuple[str, ...]) -> Dict[str, int]:
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    return {name: LAUNCH_COUNTERS[name].count for name in names}
+
+
+def train_parity(dev: torch.device, arch: str) -> None:
+    """(a) Full width, ``TRAIN_LAYERS`` layers, fp32: the card against the
+    CPU on the same weights (drawn on the card, copied to the host) and the
+    same batch (``SyntheticLMDataset`` step 0): the loss, every gradient and
+    the step of one AdamW update at a constant ``TRAIN_LR``, p_after −
+    p_before, of every parameter. Tolerances: the loss within 1e-4
+    relative; each gradient within 1e-3 of its largest magnitude (the
+    card's SSD kernels and sums in another order); the step, against the
+    largest CPU step of its tensor plus one fp32 ulp of the parameter (the
+    rounding of p + step, which may fall either way):
+    (i) the card's step on the card's gradients against the CPU's AdamW on
+    those same gradients from the same parameters, every element within
+    1e-4; (ii) end to end, against the CPU's step on its own gradients,
+    within 1e-3 where the CPU gradient is resolved (above 1e-2 of its
+    largest magnitude, ten times the gradient tolerance, and above
+    1000·eps, 1e-5): there the first step, −lr·(g/(|g|+eps) + wd·p),
+    moves by at most lr·(eps/|g|)·(|Δg|/|g|) ≤ 1e-4·lr. Elsewhere a
+    gradient's error changes the step's size or sign (counted and
+    printed)."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.train.step import apply_gradients, init_train_state, make_grad_fn
+
+    cfg = family_cfg(arch, TRAIN_LAYERS, dtype="float32")
+    model, opt = build_model(cfg), adamw(TRAIN_LR)
+    grad_fn = make_grad_fn(model, cfg, ParallelCtx())
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH).batch_at(0)
+
+    def host_params(state: Any) -> Dict[str, torch.Tensor]:
+        return {k: p.detach().cpu() for k, p in state.params.named_parameters()}
+
+    runs, before = {}, {}
+    for where in ("cuda", "cpu"):
+        on = dev if where == "cuda" else torch.device("cpu")
+        state = init_train_state(model, cfg, opt, 0, params=model.init(0, device=dev).to(on))
+        before = before or {k: p.clone() for k, p in host_params(state).items()}
+        batch = {k: torch.from_numpy(v).to(on) for k, v in data.items()}
+        start = counts_of(TRAIN_KERNELS)
+        t0 = time.perf_counter()
+        loss, _, grads = grad_fn(state.params, batch)
+        state, gnorm = apply_gradients(state, grads, opt)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rises = {k: v - start[k] for k, v in counts_of(TRAIN_KERNELS).items()}
+        runs[where] = (float(loss), float(gnorm), {k: g.float().cpu() for k, g in grads.items()},
+                       host_params(state), rises)
+        log(f"  (a) {arch} {where}: loss {float(loss):.6f} grad_norm {float(gnorm):.6f}, one "
+            f"step in {secs:.2f} s, launches {rises}")
+        del state, grads, batch
+    # The CPU's AdamW on the card's gradients, from the same parameters.
+    state = init_train_state(model, cfg, opt, 0, params=model.init(0, device=dev).to("cpu"))
+    assert all(torch.equal(p, before[k]) for k, p in host_params(state).items())
+    state, _ = apply_gradients(state, runs["cuda"][2], opt)
+    on_card_grads = host_params(state)
+    del state
+    (g_loss, g_norm, g_grads, g_params, g_rises), (c_loss, c_norm, c_grads, c_params, c_rises) = (
+        runs["cuda"], runs["cpu"])
+    n_ssd = ssm_layers(cfg)
+    assert all(v == 0 for v in c_rises.values()), c_rises
+    assert g_rises == {"ssd_stage1": n_ssd, "ssd_stage1_bwd": n_ssd}, g_rises
+    assert abs(g_loss - c_loss) <= 1e-4 * abs(c_loss), (g_loss, c_loss)
+    worst_g, worst_own, worst_e2e, flipped, resolved_n, total = 0.0, 0.0, 0.0, 0, 0, 0
+    for k, cg in c_grads.items():
+        gmax = float(cg.abs().max())
+        err = max_err(g_grads[k], cg)
+        assert err <= 1e-3 * gmax or gmax == 0.0, (k, err, gmax)
+        worst_g = max(worst_g, err / gmax if gmax else 0.0)
+        p0 = before[k]
+        g_step, c_step, o_step = g_params[k] - p0, c_params[k] - p0, on_card_grads[k] - p0
+        big = torch.maximum(p0.abs(), torch.maximum(c_params[k].abs(), g_params[k].abs()))
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        # (i) every element, the same gradients on both sides
+        smax = float(o_step.abs().max())
+        over = (g_step - o_step).abs() - ulp
+        assert float(over.max()) <= 1e-4 * smax, (k, float(over.max()), smax)
+        worst_own = max(worst_own, float(over.clamp(min=0).max()) / smax if smax else 0.0)
+        # (ii) end to end, where the CPU gradient is resolved
+        smax = float(c_step.abs().max())
+        resolved = (cg.abs() > 1e-2 * gmax) & (cg.abs() > 1e3 * 1e-8)  # adamw's eps
+        over = (g_step - c_step).abs() - ulp
+        bad = int((over[resolved] > 1e-3 * smax).sum())
+        assert bad == 0, (k, bad)
+        if bool(resolved.any()):
+            worst_e2e = max(worst_e2e, float(over[resolved].clamp(min=0).max()) / smax)
+        flipped += int((over[~resolved] > 1e-3 * smax).sum())
+        resolved_n += int(resolved.sum())
+        total += cg.numel()
+    log(f"  (a) {arch} full width, {TRAIN_LAYERS} layers, fp32, batch {TRAIN_BATCH}x{TRAIN_SEQ}, "
+        f"card vs CPU: loss {g_loss:.7f} vs {c_loss:.7f} (rel {abs(g_loss - c_loss) / abs(c_loss):.2e}), "
+        f"grad_norm {g_norm:.6f} vs {c_norm:.6f}; gradients: largest error over the largest "
+        f"magnitude {worst_g:.3e} over {len(c_grads)} tensors; one AdamW step (lr {TRAIN_LR}), "
+        f"p_after - p_before beyond one ulp over the largest CPU step: (i) on the same gradients "
+        f"{worst_own:.3e} (limit 1e-4), (ii) on each side's own {worst_e2e:.3e} (limit 1e-3) over "
+        f"the {resolved_n} of {total} elements whose gradient is resolved, {flipped} elements "
+        f"with a gradient near zero beyond it")
+
+
+def patched_config(cfg: Any) -> Any:
+    """Within the block, ``run_training`` builds ``cfg`` whatever arch it is
+    given (it imports ``get_config`` by name)."""
+    import contextlib
+
+    import repro_torch.launch.train as train_mod
+
+    @contextlib.contextmanager
+    def ctx() -> Any:
+        inner = train_mod.get_config
+        train_mod.get_config = lambda arch: cfg
+        try:
+            yield
+        finally:
+            train_mod.get_config = inner
+
+    return ctx()
+
+
+def preempted_at(step: int) -> Any:
+    """Within the block, ``run_training``'s data sends this process SIGTERM
+    when the pipeline stages ``step``: the launcher's preemption handler
+    stops the run at the next step boundary and saves a checkpoint."""
+    import contextlib
+    import os
+    import signal
+
+    import repro_torch.launch.train as train_mod
+
+    base = train_mod.SyntheticLMDataset
+
+    @dataclasses.dataclass(frozen=True)
+    class Preempting(base):  # type: ignore[misc, valid-type]
+        def batch_at(self, s: int) -> Dict[str, np.ndarray]:
+            if s == step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return base.batch_at(self, s)
+
+    @contextlib.contextmanager
+    def ctx() -> Any:
+        train_mod.SyntheticLMDataset = Preempting
+        try:
+            yield
+        finally:
+            train_mod.SyntheticLMDataset = base
+
+    return ctx()
+
+
+def train_resume(dev: torch.device) -> None:
+    """(a) ``run_training`` on the card, mamba2-1.3b at full width cut to
+    ``TRAIN_LAYERS`` layers, fp32: ``TRAIN_RESUME_STEPS`` steps without a
+    break, then the same run preempted (SIGTERM while its pipeline stages
+    step ``TRAIN_PREEMPT_AT``), checkpointed, and resumed from the
+    checkpoint by a second call; the two parts' losses must be the
+    unbroken run's, step for step."""
+    import tempfile
+
+    import repro_torch.launch.train as train_mod
+
+    cfg = family_cfg("mamba2-1.3b", TRAIN_LAYERS, dtype="float32")
+    kw = dict(arch=cfg.arch_id, steps=TRAIN_RESUME_STEPS, smoke=False, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, device=dev, log_every=TRAIN_RESUME_STEPS, save_every=10**6)
+    with patched_config(cfg):
+        t0 = time.perf_counter()
+        full = train_mod.run_training(**kw)
+        t_full = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            t0 = time.perf_counter()
+            with preempted_at(TRAIN_PREEMPT_AT):
+                first = train_mod.run_training(**kw, ckpt_dir=ckpt_dir)
+            second = train_mod.run_training(**kw, ckpt_dir=ckpt_dir)
+            t_parts = time.perf_counter() - t0
+            saved = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    assert 0 < len(first) < len(full) and len(first) + len(second) == len(full), (
+        len(first), len(second), len(full))
+    np.testing.assert_allclose(first + second, full, rtol=1e-5, atol=0)
+    log(f"  (a) run_training {cfg.arch_id} {TRAIN_LAYERS} layers fp32 {TRAIN_BATCH}x{TRAIN_SEQ}: "
+        f"{len(full)} steps in {t_full:.1f} s, losses {['%.5f' % x for x in full]}; preempted "
+        f"after {len(first)} steps (checkpoints {saved}), resumed for {len(second)}, in "
+        f"{t_parts:.1f} s: largest loss difference to the unbroken run "
+        f"{max(abs(a - b) for a, b in zip(first + second, full)):.3e}")
+
+
+def train_full(dev: torch.device) -> Dict[str, int]:
+    """(b) ``run_training`` of mamba2-1.3b at full size (48 layers, d 2048,
+    bf16) at 4 x 1024 tokens a step, ``TRAIN_FULL``'s steps, no checkpoint:
+    every loss finite, the mean of the last 5 below the first 5's, each
+    step one forward and one backward SSD launch per layer (it fits
+    without rematerialisation), peak device memory."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    cfg = get_config(TRAIN_FULL["arch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+    t0 = time.perf_counter()
+    losses = train_mod.run_training(**TRAIN_FULL, smoke=False, device=dev, log_every=1)
+    secs = time.perf_counter() - t0
+    launches = counts_of(TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = TRAIN_FULL["steps"]
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    assert last5 < first5, (first5, last5)
+    assert launches == {"ssd_stage1": cfg.num_layers * steps,
+                        "ssd_stage1_bwd": cfg.num_layers * steps}, launches
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    log(f"  (b) run_training {cfg.arch_id} full size ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.dtype}), {TRAIN_FULL['global_batch']}x{TRAIN_FULL['seq_len']} "
+        f"tokens a step, peak_lr {TRAIN_FULL['peak_lr']}: {steps} steps in {secs:.1f} s (set-up "
+        f"included); mean loss first 5 {first5:.4f} -> last 5 {last5:.4f}; launches {launches} "
+        f"({launches['ssd_stage1'] // steps} forward and {launches['ssd_stage1_bwd'] // steps} "
+        f"backward a step); peak device memory {peak:.3f} GB; {tokens} tokens a step")
+    return launches
+
+
+def train_breakdown(dev: torch.device, reps: int = 5) -> None:
+    """(b) Where a full-size training step of ``TRAIN_FULL``'s model goes:
+    CUDA events around the forward and loss, the backward
+    (``torch.autograd.grad``) and the optimizer (AdamW's update and the
+    in-place add), on a fresh state and one batch, ``reps`` steps after one
+    warm-up; step ms, tokens a second and peak device memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.train.step import apply_gradients, init_train_state, make_loss_fn
+
+    cfg = get_config(TRAIN_FULL["arch"])
+    model, pctx, opt = build_model(cfg), ParallelCtx(), adamw(1e-5)
+    state = init_train_state(model, cfg, opt, 0, device=dev)
+    loss_fn = make_loss_fn(model, cfg, pctx)
+    b, s = TRAIN_FULL["global_batch"], TRAIN_FULL["seq_len"]
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    n_params = sum(p.numel() for p in state.params.parameters())
+    torch.cuda.reset_peak_memory_stats(dev)
+    times: List[Tuple[float, float, float]] = []
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = loss_fn(state.params, batch)
+        ev[1].record()
+        named = dict(state.params.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        ev[2].record()
+        state, _ = apply_gradients(state, grads, opt)
+        ev[3].record()
+        torch.cuda.synchronize()
+        del loss, grads
+        if i:
+            times.append(tuple(ev[j].elapsed_time(ev[j + 1]) for j in range(3)))
+    fwd, bwd, upd = (statistics.median(t[j] for t in times) for j in range(3))
+    total = fwd + bwd + upd
+    log(f"  (b) breakdown, {cfg.arch_id} full size, {n_params} parameters, {b}x{s} tokens, "
+        f"median of {reps} steps (CUDA events): step {total:.3f} ms, {b * s / total * 1e3:.1f} "
+        f"tokens/s; forward and loss {fwd:.3f} ms ({fwd / total:.1%}), backward {bwd:.3f} "
+        f"({bwd / total:.1%}), optimizer {upd:.3f} ({upd / total:.1%}); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+
+    def step() -> None:
+        nonlocal state
+        loss, _ = loss_fn(state.params, batch)
+        named = dict(state.params.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        state, _ = apply_gradients(state, grads, opt)
+
+    # The device's busy time and idle share over one step, and its largest
+    # kernels (the SSD kernels' share among them).
+    device_profile(f"{cfg.arch_id} training step", step, total, reps=1, top=8)
+    del state
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2936,12 +3379,25 @@ def main() -> int:
         t0 = time.perf_counter()
         launches.update(lm_phase(dev))
         log(f"lm: {time.perf_counter() - t0:.1f} s")
+    train: Dict[str, int] = {}
+    if "train" in phases:
+        log("train: repro_torch.launch.train.run_training / make_train_step (Model.train_logits, "
+            "SSDStage1Function: ssd_stage1 forward, ssd_stage1_bwd backward, AdamW)")
+        t0 = time.perf_counter()
+        train = train_phase(dev)
+        log(f"train: {time.perf_counter() - t0:.1f} s")
+        # The backward kernel's path is training; the forward's is serving
+        # where the lm phase ran.
+        for name, count in train.items():
+            if launches.get(name) is None:
+                launches[name] = count
 
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]
         row["replayed_launches"] = REPLAYED.get(row["name"].split("/")[0])
         row["closed_loop_launches"] = closed_loop.get(row["name"].split("/")[0])
         row["mesh_launches"] = mesh.get(row["name"].split("/")[0])
+        row["train_launches"] = train.get(row["name"].split("/")[0])
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ from typing import Dict
 from repro_torch.kernels.common import LaunchCounter
 from repro_torch.kernels.partition_stage1.ops import STAGE1_LAUNCHES, STAGE1_WIDE_LAUNCHES
 from repro_torch.kernels.partition_stage3.ops import STAGE3_LAUNCHES, STAGE3_WIDE_LAUNCHES
-from repro_torch.kernels.ssd_stage1.ops import SSD_STAGE1_LAUNCHES
+from repro_torch.kernels.ssd_stage1.ops import SSD_STAGE1_BWD_LAUNCHES, SSD_STAGE1_LAUNCHES
 from repro_torch.kernels.thomas.ops import THOMAS_LAUNCHES, THOMAS_WIDE_LAUNCHES
 from repro_torch.kernels.tridiag_matvec.ops import MATVEC_LAUNCHES, tridiag_matvec_cuda
 
@@ -27,6 +27,7 @@ LAUNCH_COUNTERS: Dict[str, LaunchCounter] = {
         THOMAS_WIDE_LAUNCHES,
         STAGE3_WIDE_LAUNCHES,
         SSD_STAGE1_LAUNCHES,
+        SSD_STAGE1_BWD_LAUNCHES,
         MATVEC_LAUNCHES,
     )
 }

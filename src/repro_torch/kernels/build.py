@@ -34,6 +34,7 @@ SOURCES: Tuple[str, ...] = (
     "partition_stage1_wide",
     "partition_stage3_wide",
     "ssd_stage1",
+    "ssd_stage1_bwd",
     "tridiag_matvec",
 )
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"

@@ -14,6 +14,13 @@ rows, the chunk states (two heads a block), and the intra-chunk outputs
 decay in fp32 before splitting. Its plain version is
 :func:`repro_torch.models.layers.ssm.ssd_stage1`.
 
+The gradient is the port's own kernel, ``csrc/ssd_stage1_bwd.cu`` (the TPU
+kernel has no backward), behind :func:`ssd_stage1_backward_cuda`, whose
+plain version is :func:`repro_torch.models.layers.ssm.ssd_stage1_backward`.
+:class:`SSDStage1Function` ties the two wrappers together for autograd: on
+CUDA tensors its forward and backward launch the kernels, on CPU tensors
+they run the plain versions.
+
 :func:`ssd_scan_kernel` is the counterpart of ``ssd_scan_pallas``: the same
 signature and semantics as the plain
 :func:`repro_torch.models.layers.ssm.ssd_scan`, with Stage 1 through
@@ -23,42 +30,65 @@ signature and semantics as the plain
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.models.layers.ssm import chunked_ssd, ssd_stage1
+from repro_torch.models.layers.ssm import chunked_ssd, ssd_stage1, ssd_stage1_backward
 
 SSD_STAGE1_LAUNCHES = common.LaunchCounter("ssd_stage1")
+SSD_STAGE1_BWD_LAUNCHES = common.LaunchCounter("ssd_stage1_bwd")
 #: The longest chunk the kernel takes (its shared-memory prefix sum).
 MAX_CHUNK = 1024
 
 _ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_BWD_ARGS = (ctypes.c_void_p,) * 19 + (ctypes.c_longlong,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+#: The backward's split of its work: groups of at least this many heads
+#: share a dS tile's work, and slices of at least this many (head, column)
+#: pairs the state term of dB; each sum over them is taken in a fixed order.
+BWD_HEADS_PER_GROUP = 8
+BWD_PAIRS_PER_SLICE = 256
+_MAX_GRID_Z = 65535
 
 Tensor = torch.Tensor
+
+
+def _check_shapes(what: str, names: Tuple[str, ...], tensors: Tuple[Tensor, ...]) -> None:
+    """u [G, Q, H, P], dac [G, Q, H], b and c [G, Q, N], then (backward)
+    dy [G, Q, H, P] and ds [G, H, P, N]."""
+    u, b = tensors[0], tensors[2]
+    if u.ndim != 4:
+        raise ValueError(f"{what} takes u of shape [G, Q, H, P], got {tuple(u.shape)}")
+    g, q, nh, p = u.shape
+    n = b.shape[-1]
+    shapes = [(g, q, nh, p), (g, q, nh), (g, q, n), (g, q, n), (g, q, nh, p), (g, nh, p, n)]
+    for name, t, shape in zip(names, tensors, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _check_kernel_operands(what: str, names: Tuple[str, ...], tensors: Tuple[Tensor, ...]) -> None:
+    for name, t in zip(names, tensors):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: the kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    q = tensors[0].shape[1]
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"{what}: chunk length {q} outside 1..{MAX_CHUNK}")
 
 
 def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
     """u: [G, Q, H, P]; dac: [G, Q, H]; b/c: [G, Q, N], all fp32 on the card.
     Returns (y_diag [G, Q, H, P], states [G, H, P, N])."""
-    if u.ndim != 4:
-        raise ValueError(f"ssd_stage1 takes u of shape [G, Q, H, P], got {tuple(u.shape)}")
-    g, q, nh, p = u.shape
-    n = b.shape[-1]
-    shapes = [(g, q, nh, p), (g, q, nh), (g, q, n), (g, q, n)]
-    for name, t, shape in zip(("u", "dac", "b", "c"), (u, dac, b, c), shapes):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ssd_stage1: {name} has shape {tuple(t.shape)}, expected {shape}")
+    names = ("u", "dac", "b", "c")
+    _check_shapes("ssd_stage1", names, (u, dac, b, c))
     if not common.on_cuda(u, dac, b, c):
         return ssd_stage1(u, dac, b, c)
-    for name, t in zip(("u", "dac", "b", "c"), (u, dac, b, c)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_stage1: the kernel takes float32, {name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"ssd_stage1: {name} must be contiguous")
-    if not 1 <= q <= MAX_CHUNK:
-        raise ValueError(f"ssd_stage1: chunk length {q} outside 1..{MAX_CHUNK}")
+    _check_kernel_operands("ssd_stage1", names, (u, dac, b, c))
+    g, q, nh, p = u.shape
+    n = b.shape[-1]
     y = torch.empty_like(u)
     s = torch.empty(g, nh, p, n, dtype=torch.float32, device=u.device)
     # Scratch for C·Bᵀ, rows padded to a multiple of 4 floats (16 bytes).
@@ -69,6 +99,66 @@ def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tenso
     )
     SSD_STAGE1_LAUNCHES.add()
     return y, s
+
+
+def ssd_stage1_backward_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                             ds: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The gradient of SSD Stage 1: the forward's inputs and the incoming
+    gradients dy [G, Q, H, P] and ds [G, H, P, N], all fp32 on the card.
+    Returns (du, ddac, db, dc) of the inputs' shapes."""
+    names = ("u", "dac", "b", "c", "dy", "ds")
+    _check_shapes("ssd_stage1_backward", names, (u, dac, b, c, dy, ds))
+    if not common.on_cuda(u, dac, b, c, dy, ds):
+        return ssd_stage1_backward(u, dac, b, c, dy, ds)
+    _check_kernel_operands("ssd_stage1_backward", names, (u, dac, b, c, dy, ds))
+    g, q, nh, p = u.shape
+    n = b.shape[-1]
+    t = common.cdiv(q, 64)  # the kernel's q and k tiles
+    z = max(1, _MAX_GRID_Z // max(g, 1))  # the grid's third dimension holds G x groups
+    hs = max(1, min(nh // BWD_HEADS_PER_GROUP, z))
+    js = max(1, min(nh * p // BWD_PAIRS_PER_SLICE, 16, z))
+
+    def f32(*shape: int) -> Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=u.device)
+
+    du, ddac, db, dc = torch.empty_like(u), torch.empty_like(dac), torch.empty_like(b), torch.empty_like(c)
+    # Scratch: cum and e [G, Q, H], C·Bᵀ and its gradient [G, Q, Q], the
+    # head groups' parts of that gradient [G, HS, Q, Q], the partial row and
+    # column sums [G, T, Q, H], r [G, Q, H] and the slices' parts of dB's
+    # state term [G, JS, Q, N].
+    scratch = (f32(g, q, nh), f32(g, q, nh), f32(g, q, q), f32(g, q, q), f32(g, hs, q, q),
+               f32(g, t, q, nh), f32(g, t, q, nh), f32(g, q, nh), f32(g, js, q, n))
+    common.call(
+        "ssd_stage1_bwd", "ssd_stage1_bwd", "ssd_stage1_bwd_f32", _BWD_ARGS, u.device,
+        [x.data_ptr() for x in (u, dac, b, c, dy, ds, du, ddac, db, dc, *scratch)]
+        + [g, q, nh, p, n, hs, js],
+    )
+    SSD_STAGE1_BWD_LAUNCHES.add()
+    return du, ddac, db, dc
+
+
+class SSDStage1Function(torch.autograd.Function):
+    """SSD Stage 1 with its gradient: forward :func:`ssd_stage1_cuda`,
+    backward :func:`ssd_stage1_backward_cuda` (each the kernel on CUDA
+    tensors, the plain version on CPU tensors). Saves the four inputs; an
+    output without a gradient gets zeros."""
+
+    @staticmethod
+    def forward(ctx: Any, u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
+        y, s = ssd_stage1_cuda(u, dac, b, c)
+        ctx.save_for_backward(u, dac, b, c)
+        return y, s
+
+    @staticmethod
+    def backward(ctx: Any, dy: Optional[Tensor],
+                 ds: Optional[Tensor]) -> Tuple[Optional[Tensor], ...]:
+        u, dac, b, c = ctx.saved_tensors
+        g, q, nh, p = u.shape
+        n = b.shape[-1]
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        ds = (u.new_zeros(g, nh, p, n) if ds is None else ds.contiguous())
+        grads = ssd_stage1_backward_cuda(u, dac, b, c, dy, ds)
+        return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
 
 
 def ssd_scan_kernel(
@@ -84,4 +174,4 @@ def ssd_scan_kernel(
     """Drop-in for ``ssm.ssd_scan`` with Stage 1 through the kernel wrapper.
     Returns (y [B, S, H, P], final_state [B, H, P, N]); raises
     ``ValueError`` unless S is a multiple of ``min(chunk, S)``."""
-    return chunked_ssd(ssd_stage1_cuda, x, dt, a, b_in, c_in, chunk=chunk, h0=h0)
+    return chunked_ssd(SSDStage1Function.apply, x, dt, a, b_in, c_in, chunk=chunk, h0=h0)

@@ -39,7 +39,7 @@ from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
 from repro_torch.models.transformer import Caches, _dtype_of
-from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.ctx import ParallelCtx, remat_wrap
 
 Tensor = torch.Tensor
 #: The shared block's MLP activation (the reference's, whatever the config says).
@@ -156,17 +156,27 @@ def hybrid_forward(
     ssm_in = caches["ssm"] if caches is not None else None
     new_kvs: List[KVCache] = []
     new_states: List[SSMState] = []
-    x = x0
-    for si in range(n_super):
+
+    def super_block(x: Tensor, si: int) -> Tuple[Tensor, Optional[KVCache], List[SSMState]]:
         x, new_kv = _shared_block(params.shared, x, x0, positions, cfg, pctx,
                                   kv_in[si] if kv_in is not None else None, cache_index)
-        if new_kv is not None:
-            new_kvs.append(new_kv)
+        states: List[SSMState] = []
         for j in range(si * e, (si + 1) * e):
             x, new_state = _ssm_layer(params.ssm_layers[j], x, cfg, pctx,
                                       ssm_in[j] if ssm_in is not None else None, want_state)
             if new_state is not None:
-                new_states.append(new_state)
+                states.append(new_state)
+        return x, new_kv, states
+
+    # Each super-block rematerialised as pctx.remat says; the tail is not,
+    # as in the reference.
+    step = remat_wrap(super_block, pctx)
+    x = x0
+    for si in range(n_super):
+        x, new_kv, states = step(x, si)
+        if new_kv is not None:
+            new_kvs.append(new_kv)
+        new_states.extend(states)
     new_caches: Caches = {}
     if new_kvs:
         new_caches["kv"] = new_kvs

@@ -12,10 +12,12 @@ The SSD chunked scan has the partition method's 3-stage structure over time:
 :func:`ssd_stage1` is Stage 1 in plain PyTorch (the einsums of the
 reference's ``ssd_scan`` on [G = batch·chunks] views, the counterpart of
 ``repro.kernels.ssd_stage1.ref.ssd_stage1_ref``). It is the plain version of
-the CUDA kernel ``csrc/ssd_stage1.cu``. :func:`ssd_scan` runs all three
-stages with it; ``repro_torch.kernels.ssd_stage1.ssd_scan_kernel`` runs the
-same Stages 2 and 3 around the kernel's wrapper, and is what the prefill
-branch of :func:`ssm_apply` calls.
+the CUDA kernel ``csrc/ssd_stage1.cu``, and :func:`ssd_stage1_backward`
+its gradient, the plain version of ``csrc/ssd_stage1_bwd.cu``.
+:func:`ssd_scan` runs all three stages with it;
+``repro_torch.kernels.ssd_stage1.ssd_scan_kernel`` runs the same Stages 2
+and 3 around ``SSDStage1Function`` (the two kernels on the card), and is
+what the prefill and training branch of :func:`ssm_apply` calls.
 
 Shapes follow the Mamba2 reference: d_inner = expand·d_model, H heads of
 head_dim P, shared (ngroups=1) B/C of state size N. The projections stay
@@ -138,15 +140,22 @@ def _segsum_decay(da_chunk: Tensor) -> Tensor:
                                                         device=diff.device)))
 
 
+def _work_dtype(t: Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the gradient checks run in fp64)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def ssd_stage1(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
-    """Plain SSD Stage 1 on [G = batch·chunks] cells, in fp32.
+    """Plain SSD Stage 1 on [G = batch·chunks] cells, in fp32 (fp64 for
+    fp64 inputs).
 
     u: [G, Q, H, P] (dt-scaled inputs); dac: [G, Q, H]; b/c: [G, Q, N].
     Returns (y_diag [G, Q, H, P], states [G, H, P, N]):
     ``y_diag[q,h,:] = Σ_{k≤q} (C_q·B_k)·exp(cum_q−cum_k)·u[k,h,:]`` and
     ``state[h,:,n] = Σ_k exp(cum_Q−cum_k)·u[k,h,:]·B[k,n]``.
     """
-    u32, dac32, b32, c32 = (t.float() for t in (u, dac, b, c))
+    wt = _work_dtype(u)
+    u32, dac32, b32, c32 = (t.to(wt) for t in (u, dac, b, c))
     cum = torch.cumsum(dac32, dim=1)  # [G, Q, H]
     ldec = _segsum_decay(dac32)  # [G, H, Q, Q]
     scores = torch.einsum("gqn,gkn->gqk", c32, b32)  # [G, Q, Q]
@@ -154,6 +163,43 @@ def ssd_stage1(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Te
     decay_end = torch.exp(cum[:, -1:, :] - cum)  # [G, Q, H]
     s = torch.einsum("gkhp,gkn->ghpn", u32 * decay_end[..., None], b32)
     return y, s
+
+
+def ssd_stage1_backward(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                        ds: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The gradient of :func:`ssd_stage1`: given its inputs and the incoming
+    gradients dy [G, Q, H, P] and ds [G, H, P, N], returns (du, ddac, db,
+    dc), in fp32 (fp64 for fp64 inputs). The plain version of the CUDA
+    kernel ``csrc/ssd_stage1_bwd.cu``. Per cell and head, with
+    ``L[q,k] = exp(cum_q−cum_k)`` (k ≤ q), ``S = C·Bᵀ``, ``M = S∘L``,
+    ``e_k = exp(cum_{Q−1}−cum_k)`` and ``W[q,k] = dy[q]·u[k]``:
+
+    - ``du[k] = Σ_{q≥k} M[q,k]·dy[q] + e_k·(ds·B_k)``;
+    - ``dS = Σ_h L∘W``, ``dC = dS·B``, ``dB = dSᵀ·C + Σ_h e_k·u[k]ᵀ·ds``;
+    - with ``G = M∘W`` and ``r_k = e_k·(u[k]·(ds·B_k))``:
+      ``dcum[q] = Σ_k G[q,k] − Σ_q' G[q',q] − r_q``, plus ``Σ_k r_k`` at
+      ``q = Q−1``;
+    - ``ddac[k] = Σ_{q≥k} dcum[q]`` (a reverse cumulative sum).
+    """
+    wt = _work_dtype(u)
+    u, dac, b, c, dy, ds = (t.to(wt) for t in (u, dac, b, c, dy, ds))
+    cum = torch.cumsum(dac, dim=1)  # [G, Q, H]
+    ldec = _segsum_decay(dac)  # [G, H, Q, Q], zero above the diagonal
+    m = torch.einsum("gqn,gkn->gqk", c, b)[:, None] * ldec  # [G, H, Q, Q]
+    e = torch.exp(cum[:, -1:, :] - cum)  # [G, Q, H]
+    w = torch.einsum("gqhp,gkhp->ghqk", dy, u)  # [G, H, Q, Q]
+    bds = torch.einsum("gkn,ghpn->gkhp", b, ds)  # ds·B_k
+    du = torch.einsum("ghqk,gqhp->gkhp", m, dy) + e[..., None] * bds
+    dscores = (ldec * w).sum(dim=1)  # [G, Q, Q]
+    dc = torch.einsum("gqk,gkn->gqn", dscores, b)
+    db = (torch.einsum("gqk,gqn->gkn", dscores, c)
+          + torch.einsum("gkhp,ghpn->gkn", u * e[..., None], ds))
+    gm = m * w
+    r = e * (u * bds).sum(dim=-1)  # [G, Q, H]
+    dcum = (gm.sum(dim=-1) - gm.sum(dim=-2)).transpose(1, 2) - r  # [G, Q, H]
+    dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + r.sum(dim=1, keepdim=True)], dim=1)
+    ddac = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), dim=1), (1,))
+    return du, ddac, db, dc
 
 
 def chunked_ssd(stage1: Stage1, x: Tensor, dt: Tensor, a: Tensor, b_in: Tensor,

@@ -4,12 +4,15 @@ every family: ``ssm``, ``dense``, ``moe`` and ``vlm`` through
 their own assemblies.
 
 Batch dict conventions (as in the reference):
-  prefill : tokens [B,S] integer (+ patches [B,P,D] for vlm, frames
-            [B,T,D] for encdec)
+  train   : tokens [B,S] integer, labels [B,S] integer (+ patches [B,P,D]
+            for vlm, frames [B,T,D] for encdec)
+  prefill : tokens [B,S] integer (+ patches / frames)
   decode  : token [B,1] integer, pos [B] integer (+ caches from
             make_caches/prefill)
 
-``train_logits`` waits for the training slice.
+``train_logits`` records the autograd graph (the training step,
+:mod:`repro_torch.train.step`); ``prefill`` and ``decode_step`` run under
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -57,10 +60,33 @@ class Model:
             return H.init_hybrid(gen, self.cfg)
         return T.init_lm(gen, self.cfg)
 
+    # ---------------------------------------------------------- training ----
+    def train_logits(self, params: nn.Module, batch: Dict[str, Tensor],
+                     pctx: ParallelCtx) -> Tuple[Tensor, Tensor]:
+        """Returns (logits over the loss positions, the auxiliary loss): the
+        MoE's load-balancing loss summed over its layers, zero for the other
+        families. The VLM's logits are cut to the text positions."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            enc_out = E.encode(params, batch["frames"], cfg, pctx)
+            logits, _ = E.decode(params, batch["tokens"], enc_out, cfg, pctx)
+            return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        if cfg.family == "hybrid":
+            logits, _, aux = H.hybrid_forward(params, batch["tokens"], cfg, pctx)
+            return logits, aux
+        patches = batch.get("patches")
+        logits, _, aux = T.lm_forward(params, batch["tokens"], cfg, pctx, patch_embeds=patches)
+        if patches is not None:
+            logits = logits[:, patches.shape[1]:, :]  # loss on text positions
+        return logits, aux
+
     # ----------------------------------------------------------- serving ----
     def make_caches(self, batch: int, max_len: int, *,
                     device: DeviceLike = "cuda") -> T.Caches:
-        dev = resolve_device(device)
+        """Zero caches; on ``device="meta"`` they hold shapes and dtypes and
+        no memory (``repro_torch.configs.shapes.input_specs``)."""
+        meta = torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         if self.cfg.family == "encdec":
             return E.make_encdec_caches(self.cfg, batch, max_len, device=dev)
         if self.cfg.family == "hybrid":

@@ -40,7 +40,7 @@ from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.moe import MoE, init_moe, moe_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
-from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.ctx import ParallelCtx, remat_wrap
 
 Tensor = torch.Tensor
 Caches = Dict[str, Any]
@@ -217,8 +217,9 @@ def _stack_layers_apply(
     new_kvs: List[KVCache] = []
     new_states: List[SSMState] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat_wrap(block_apply, pctx)  # each layer rematerialised as pctx.remat says
     for i, layer in enumerate(params.layers):
-        x, new_kv, new_state, a = block_apply(
+        x, new_kv, new_state, a = block(
             layer, x, positions, cfg, pctx,
             window=windows[i % len(windows)],
             kv_cache=kv_in[i] if kv_in is not None else None,

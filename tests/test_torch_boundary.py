@@ -110,7 +110,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "repro_torch.core.autotune.convert, repro_torch.core.streams, "
         "repro_torch.launch.serve, repro_torch.models.registry, "
         "repro_torch.models.convert, repro_torch.kernels.ssd_stage1, repro_torch.serve, "
-        "repro_torch.telemetry, repro_torch.core.streams.measure, repro_torch.parallel\n"
+        "repro_torch.telemetry, repro_torch.core.streams.measure, repro_torch.parallel, "
+        "repro_torch.launch.train, repro_torch.train, repro_torch.optim, repro_torch.ckpt, "
+        "repro_torch.data, repro_torch.ft, repro_torch.configs.shapes, "
+        "repro_torch.core.autotune.overlap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"

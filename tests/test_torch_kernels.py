@@ -147,7 +147,7 @@ def test_stage3_left_edge_is_the_neighbours_interface_value():
 def test_cpu_tensors_take_the_plain_path_without_counting():
     from repro_torch.kernels.partition_stage1.ops import partition_stage1_cuda_wide
     from repro_torch.kernels.partition_stage3.ops import partition_stage3_cuda_wide
-    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_cuda
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_backward_cuda, ssd_stage1_cuda
     from repro_torch.kernels.thomas.ops import thomas_cuda_wide
     from repro_torch.kernels.tridiag_matvec.ops import tridiag_matvec_cuda
 
@@ -160,6 +160,8 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     tridiag_matvec_cuda(dl, d, du, b)
     ssd_stage1_cuda(torch.ones(1, 4, 2, 3), -torch.ones(1, 4, 2), torch.ones(1, 4, 5),
                     torch.ones(1, 4, 5))
+    ssd_stage1_backward_cuda(torch.ones(1, 4, 2, 3), -torch.ones(1, 4, 2), torch.ones(1, 4, 5),
+                             torch.ones(1, 4, 5), torch.ones(1, 4, 2, 3), torch.ones(1, 2, 3, 5))
     assert {k: c.count for k, c in LAUNCH_COUNTERS.items()} == before
     assert set(LAUNCH_COUNTERS) == {
         "partition_stage1",
@@ -169,6 +171,7 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
         "thomas_wide",
         "partition_stage3_wide",
         "ssd_stage1",
+        "ssd_stage1_bwd",
         "tridiag_matvec",
     }
 
