@@ -45,12 +45,14 @@ Phases:
    count m does not divide with NaN past it, ignored ends and identity
    rows past P. The SSD stage is held against its plain version (on the CPU)
    at chunk lengths 1 ... 1024 and ragged widths, with its fp32-FMA and
-   split-TF32 bounds. The SSD stage's backward kernel (``ssd_stage1_bwd``,
+   split-TF32 bounds, and with one NaN or infinity in an input (the same
+   non-finite outputs as the plain version). The SSD stage's backward kernel (``ssd_stage1_bwd``,
    the port's own: the TPU kernel has none) is held against the plain
    backward at both models' widths (G = 16, Q = 256 and G = 4, Q = 197),
    each output within ``SSD_BWD_TOL`` of its largest magnitude, twice for
-   the same bits, with its fp32-FMA bound; and at its edges (chunk lengths
-   1 ... 1024, ragged P and N) against the plain backward on the CPU.
+   the same bits, with its split-TF32 and fp32-FMA bounds; and at its edges
+   (chunk lengths 1 ... 1024, ragged P and N, one NaN or infinity in an
+   input) against the plain backward on the CPU.
 3. ``main``: the port's main path through ``TridiagSession`` on
    ``device="cuda"``, ``backend="auto"`` and the fitted Eq. 4-7 heuristic.
    System-major (``layout="system-major"``): ``solve`` at n = 1e7 (fp64)
@@ -228,12 +230,18 @@ MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_sta
 LM_KERNELS = ("ssd_stage1",)
 # The training path launches the SSD kernel forward and backward.
 TRAIN_KERNELS = ("ssd_stage1", "ssd_stage1_bwd")
+# The __global__ functions of csrc/ssd_stage1.cu and csrc/ssd_stage1_bwd.cu
+# (each <name>_kernel), as a device trace names them.
+SSD_KERNEL_NAMES = ("ssd_scores", "ssd_y", "ssd_state", "bwd_scores", "bwd_mid", "bwd_out")
 # The backward kernel's tolerance against its plain version: each output's
 # largest error within this share of its largest magnitude. A gradient
 # sums hundreds of terms (d cum takes differences of such sums), so an
 # element's error follows the sum's magnitude, not its own: in fp32 the
 # plain version itself is 4e-7 ... 4e-6 of the largest magnitude off fp64.
 SSD_BWD_TOL = 1e-4
+# (G, Q, H, P, N) of the SSD kernels' non-finite checks: a ragged last
+# tile of Q and two groups of heads.
+NONFINITE_SHAPE = (2, 197, 12, 64, 128)
 # The train phase, part (a): the card against the CPU at full width, cut
 # to TRAIN_LAYERS layers, fp32, batch TRAIN_BATCH x TRAIN_SEQ, one AdamW
 # step at a constant TRAIN_LR (large enough that one fp32 ulp of a
@@ -1154,10 +1162,11 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
     # The backward kernel at the same shapes: a training step's G = 16
     # cells of Q = 256 (4 x 1024 tokens) and the odd chunk, at both models'
     # widths, against the plain backward on the card, within SSD_BWD_TOL of
-    # each output's largest magnitude. fp32 FMAs on the CUDA cores: its
-    # bound is its operations at 67 TFLOP/s; the split-TF32 bound on the
-    # tensor cores (the forward's unit, fp32 accuracy from three TF32
-    # products) is printed beside. Two calls give the same bits (no atomics).
+    # each output's largest magnitude. Like the forward it runs its products
+    # on the tensor cores in split TF32, three TF32 products for each fp32
+    # one: its bound is 3 x the operations at the TF32 rate; the fp32-FMA
+    # bound on the CUDA cores is printed beside. Two calls give the same
+    # bits (no atomics).
     from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_backward_cuda
     from repro_torch.models.layers.ssm import ssd_stage1_backward
 
@@ -1167,12 +1176,14 @@ def lm_kernel_rows(dev: torch.device, check: Callable[..., Tuple[Any, float]]) -
             nbytes, macs = ssd_bwd_cost(g, q, nh, p, n)
             got, ms = check(f"ssd_stage1_bwd/G={g},Q={q},H={nh},P={p},N={n}", torch.float32,
                             lambda: ssd_stage1_backward_cuda(*ins), lambda: ssd_stage1_backward(*ins),
-                            nbytes, 2 * macs, reps=10, compare=close_to_max)
-            fma_ms, _ = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
+                            nbytes, 3 * 2 * macs, reps=10, peak=TF32_TC_FLOPS,
+                            compare=close_to_max)
+            fma_ms, fma_by = bound(nbytes, 2 * macs, PEAK_FLOPS[torch.float32])
             tc_ms, tc_by = bound(nbytes, 6 * macs, TF32_TC_FLOPS)
-            log(f"    {2 * macs / 1e9:.3f} GFLOP: fp32-FMA bound {fma_ms:.4f} ms (CUDA cores, share "
-                f"{fma_ms / ms:.3f}); split-TF32 bound {tc_ms:.4f} ms by {tc_by} (tensor cores, 3 x "
-                f"the operations at 495 TFLOP/s, share {tc_ms / ms:.3f})")
+            log(f"    {2 * macs / 1e9:.3f} GFLOP: split-TF32 bound {tc_ms:.4f} ms by {tc_by} "
+                f"(tensor cores, 3 x the operations at 495 TFLOP/s, share {tc_ms / ms:.3f}); "
+                f"fp32-FMA bound {fma_ms:.4f} ms by {fma_by} (CUDA cores, 67 TFLOP/s, share "
+                f"{fma_ms / ms:.3f})")
             again = ssd_stage1_backward_cuda(*ins)
             assert all(torch.equal(a, b) for a, b in zip(got, again)), "ssd_stage1_bwd: not deterministic"
             del ins, got, again
@@ -1249,6 +1260,50 @@ def close_to_max(got: torch.Tensor, want: torch.Tensor, tol: float = SSD_BWD_TOL
     assert err <= tol * scale, f"max_abs_err {err:.3e} above {tol} x {scale:.3e}"
 
 
+def nonfinite_cases(q: int, backward: bool) -> List[Tuple[int, Tuple[int, ...], int]]:
+    """One non-finite value in one input of cell 0 per case: (input, index,
+    fp32 bits), inputs ordered u, dac, b, c (then dy, ds). The NaNs have
+    every mantissa bit set, as the card's arithmetic makes them. Each sits
+    where the causal mask takes nothing of its reach: row 0 of u, dac and b
+    (column 0 of S, W and L) and the last row of c and dy. The plain
+    version forms S∘L densely, so a NaN elsewhere in S would also land on
+    its k > q entries (NaN·0), which the kernels' selects leave at zero."""
+    nan, neg_nan, inf, neg_inf = 0x7FFFFFFF, -1, 0x7F800000, -0x800000
+    cases = [(0, (0, 0, 1, 3), nan), (1, (0, 0, 1), neg_nan), (2, (0, 0, 5), inf),
+             (3, (0, q - 1, 5), nan)]
+    if backward:
+        cases += [(4, (0, q - 1, 1, 3), neg_inf), (5, (0, 1, 3, 5), neg_nan)]
+    return cases
+
+
+def nonfinite_agree(name: str, kernel: Callable[..., Any], plain: Callable[..., Any],
+                    ins: Tuple[torch.Tensor, ...], backward: bool,
+                    compare: Callable[[torch.Tensor, torch.Tensor], None]) -> List[int]:
+    """A NaN or an infinity in an input reaches the kernel's outputs: for
+    each of ``nonfinite_cases``, the kernel's outputs are non-finite in
+    exactly the elements where the plain version's on the CPU are (a NaN
+    may stand where the plain version has an infinity: the split makes
+    the high part of an infinity NaN), and ``compare`` holds the finite
+    rest.
+    Returns the count of non-finite outputs of each case."""
+    counts = []
+    for i, at, v in nonfinite_cases(ins[0].shape[1], backward):
+        bad = [t.clone() for t in ins]
+        bad[i].view(torch.int32)[at] = v
+        got, want = kernel(*bad), plain(*(t.cpu() for t in bad))
+        count = 0
+        for gt, wt in zip(got, want):
+            fin = torch.isfinite(wt)
+            assert torch.equal(torch.isfinite(gt).cpu(), fin), (
+                f"{name}: input {i} at {at} = {v:#x}: non-finite outputs differ "
+                f"({int((~torch.isfinite(gt)).sum())} against {int((~fin).sum())})")
+            compare(gt.cpu()[fin], wt[fin])
+            count += int((~fin).sum())
+        assert count, f"{name}: input {i} at {at} = {v:#x} left every output finite"
+        counts.append(count)
+    return counts
+
+
 def ssd_bwd_edges(dev: torch.device) -> None:
     """The backward kernel against its plain version on the CPU (see
     ``ssd_edges``) at chunk lengths 1 ... 1024, ragged tiles of P (130: three
@@ -1273,6 +1328,11 @@ def ssd_bwd_edges(dev: torch.device) -> None:
     log("  ssd_stage1_bwd at the edges against the plain version on the CPU, (G, Q, H, P, N) -> "
         "largest error over the largest magnitude (du, ddac, db, dc): "
         + "; ".join(f"{sh} {e:.3e}" for sh, e in zip(shapes, errs)))
+    ins = ssd_bwd_inputs(dev, *NONFINITE_SHAPE, seed=990)
+    counts = nonfinite_agree("ssd_stage1_bwd", ssd_stage1_backward_cuda, ssd_stage1_backward, ins,
+                             True, close_to_max)
+    log(f"    one NaN or infinity in u, dac, b, c, dy or ds at {NONFINITE_SHAPE}: the same non-finite "
+        f"outputs as the plain version ({counts} elements), the rest within SSD_BWD_TOL")
     ins = ssd_bwd_inputs(dev, 1, 1024, 64, 64, 128, seed=950 + shapes.index((1, 1024, 64, 64, 128)))
     want = ssd_stage1_backward(*(t.double() for t in ins))
     for label, got in (("kernel", ssd_stage1_backward_cuda(*ins)),
@@ -1307,6 +1367,11 @@ def ssd_edges(dev: torch.device) -> None:
     log("  ssd_stage1 at the edges against the plain version on the CPU, (G, Q, H, P, N) -> "
         "max_abs_err: "
         + "; ".join(f"{sh} {e:.3e}" for sh, e in zip(shapes, errs)))
+    ins = ssd_inputs(dev, *NONFINITE_SHAPE, seed=940)
+    counts = nonfinite_agree("ssd_stage1", ssd_stage1_cuda, ssd_stage1, ins, False,
+                             lambda gt, wt: assert_allclose_by_dtype(gt, wt, torch.float32))
+    log(f"    one NaN or infinity in u, dac, b or c at {NONFINITE_SHAPE}: the same non-finite "
+        f"outputs as the plain version ({counts} elements), the rest on the fp32 ladder")
 
     # At Q = 1024 both the kernel and the plain version on the card against
     # an fp64 version of the same formula, on the card.
@@ -3301,9 +3366,13 @@ def train_breakdown(dev: torch.device, reps: int = 5) -> None:
         grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
         state, _ = apply_gradients(state, grads, opt)
 
-    # The device's busy time and idle share over one step, and its largest
-    # kernels (the SSD kernels' share among them).
-    device_profile(f"{cfg.arch_id} training step", step, total, reps=1, top=8)
+    # The device's busy time and idle share over one step, its largest
+    # kernels, and from the same trace each of the SSD kernels' kernels.
+    entries = device_profile(f"{cfg.arch_id} training step", step, total, reps=1, top=8)
+    ssd = [(t, c, f"{name}_kernel") for name in SSD_KERNEL_NAMES for t, c, k in entries
+           if f"::{name}_kernel(" in k]
+    log(f"    the SSD kernels in that step ({sum(t for t, _, _ in ssd):.4f} ms): "
+        + "; ".join(f"{k} {t:.4f} ms x{c}" for t, c, k in ssd))
     del state
 
 

@@ -24,9 +24,10 @@
 // reaches; mma.sync, used here, peaks lower on an H100: PERF.md).
 //
 // Precision. Every operand x of a product is split as x = hi + lo with
-// hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (x - hi is exact), and
-// the product is taken as lo*hi + hi*lo + hi*hi with fp32 accumulation in
-// mma.sync.m16n8k8 (TF32 in, fp32 out). That keeps about 22 of fp32's 24
+// hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (x - hi is exact; a
+// NaN or an infinity makes hi NaN: ssd_tf32.cuh), and the product is taken
+// as lo*hi + hi*lo + hi*hi with fp32 accumulation in mma.sync.m16n8k8
+// (TF32 in, fp32 out). That keeps about 22 of fp32's 24
 // significand bits, and the result holds the fp32 tolerance ladder (rtol
 // 1e-5, atol 1e-4) against the plain version. One TF32 product alone keeps
 // 11 bits, about three decimal digits, and misses it
@@ -61,14 +62,12 @@
 //   as 8-byte pairs where aligned. At Q = 1024 the result is nearer an fp64
 //   reference than the plain version on the card is, whose fp32 cumsum of
 //   the decays errs more than this kernel's scan (PERF.md).
-#include <cstdint>
-
 #include "common.cuh"
+#include "ssd_tf32.cuh"
 
 namespace {
 
 constexpr int kMaxQ = 1024;
-constexpr int kThreads = 128;  // four warps a block
 constexpr int kT = 64;         // q and k tile of the scores and of y
 constexpr int kPT = 64;        // P columns per block
 constexpr int kSK = 32;        // K slice of the scores (over N) and of the state (over Q)
@@ -78,157 +77,6 @@ constexpr int kNT = 128;       // N columns per state pass
 constexpr int kPitchSK = kSK + 4;     // [row][k] tiles read as A or B^T: 4 mod 32
 constexpr int kPitchU = kPT + 8;      // u [k][p], read as B [k][n] or A^T: 8 mod 32
 constexpr int kPitchBN = kNT + 8;     // B [k][n] of the state: 8 mod 32
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = ok ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = ok ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy a rows x cols tile (cols a multiple of 4) of a row-major source with
-// row stride `stride` into shared memory at row pitch `pitch`; rows at or
-// past row_lim and columns at or past col_lim read as zero. With vec, the
-// source rows are 16-byte aligned and col_lim is a multiple of 4.
-template <int kRows, int kCols>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src,
-                                          long long stride, int row_lim, int col_lim, bool vec) {
-  constexpr int kC4 = kCols / 4;
-  for (int i = threadIdx.x; i < kRows * kC4; i += kThreads) {
-    const int r = i / kC4, c = (i % kC4) * 4;
-    float* d = dst + r * pitch + c;
-    const float* s = src + r * stride + c;
-    const bool row_ok = r < row_lim;
-    if (vec) {
-      const bool ok = row_ok && c < col_lim;
-      cp_async16(d, ok ? s : src, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = row_ok && c + e < col_lim;
-        cp_async4(d + e, ok ? s + e : src, ok);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragments of m16n8k8 (gid = lane / 4, tig = lane % 4). A register r of
-// m tile i holds row i*16 + gid + 8*(r % 2), column tig + 4*(r / 2); B
-// register r of n tile j holds row (k) tig + 4*r, column j*8 + gid.
-// a(i, h, c) returns A at row i*16 + gid + 8*h, column tig + 4*c, and
-// b(j, r) returns B at row tig + 4*r, column j*8 + gid; each value is
-// split into its TF32 high part and remainder.
-template <int MT, typename ALoad>
-__device__ __forceinline__ void split_a(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4], ALoad a) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_tf32(a(i, r & 1, r >> 1), hi[i][r], lo[i][r]);
-}
-
-template <int NT, typename BLoad>
-__device__ __forceinline__ void split_b(uint32_t (&hi)[NT][2], uint32_t (&lo)[NT][2], BLoad b) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) split_tf32(b(j, r), hi[j][r], lo[j][r]);
-}
-
-// acc += A . B for one k step of 8 in split TF32: lo*hi + hi*lo + hi*hi,
-// small terms first. Each pass walks all MT x NT tiles, so that no MMA
-// waits on the one just issued.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[MT][NT][4], const uint32_t (&ahi)[MT][4],
-                                           const uint32_t (&alo)[MT][4],
-                                           const uint32_t (&bhi)[NT][2],
-                                           const uint32_t (&blo)[NT][2]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);
-}
-
-template <int MT, int NT, typename ALoad, typename BLoad>
-__device__ __forceinline__ void mma_k8_3xtf32(float (&acc)[MT][NT][4], ALoad a, BLoad b) {
-  uint32_t ahi[MT][4], alo[MT][4], bhi[NT][2], blo[NT][2];
-  split_a(ahi, alo, a);
-  split_b(bhi, blo, b);
-  mma_3xtf32(acc, ahi, alo, bhi, blo);
-}
-
-// acc[i][j][r] sits at warp-tile row i*16 + gid + 8*(r/2), column
-// j*8 + 2*tig + r%2; store(row, col, v0, v1) writes the pair at an even
-// column col and col + 1.
-template <int MT, int NT, typename Store>
-__device__ __forceinline__ void store_acc(const float (&acc)[MT][NT][4], Store store) {
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store(i * 16 + gid + 8 * h, j * 8 + 2 * tig, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-}
-
-// Write v0, v1 at dst[0], dst[1] where they fall before lim (counted from
-// dst), as one 8-byte store when vec (dst 8-byte aligned) and both do.
-__device__ __forceinline__ void store_pair(float* dst, int lim, float v0, float v1, bool vec) {
-  if (vec && lim >= 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-  } else {
-    if (lim >= 1) dst[0] = v0;
-    if (lim >= 2) dst[1] = v1;
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-}
 
 // ---------------------------------------------------------------- scores --
 struct ScoreSmem {
@@ -311,7 +159,6 @@ __device__ __forceinline__ void scan_cum(const float* __restrict__ dac, long lon
 // A block per (cell, head, 64 columns of P) walks the (q tile, k tile)
 // pairs on or below the diagonal; its four warps take 32 x 32 quarters of
 // each 64 x 64 output tile.
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of ssd_y_kernel: the tiles, then cum, rowf and colf of
 // y_steps(Q) floats each and the scan's warp totals.
@@ -542,8 +389,6 @@ ssd_state_kernel(const float* __restrict__ u, const float* __restrict__ dac,
     });
   }
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {

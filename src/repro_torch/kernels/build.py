@@ -6,9 +6,10 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
-``<hash>`` covers the source, the shared header and the flags, so an edited
-source rebuilds at its next use and an unchanged one is loaded as built. The
-build runs at first use, in ``build/kernels/`` at the root of the checkout.
+``<hash>`` covers the source, every header in ``csrc/`` and the flags, so an
+edited source or header rebuilds at its next use and an unchanged one is
+loaded as built. The build runs at first use, in ``build/kernels/`` at the
+root of the checkout.
 :func:`build` starts one ``nvcc`` per source, all at once. A failed build
 raises with nvcc's stderr; nothing falls back to the plain versions.
 """
@@ -74,9 +75,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by a hash of its inputs."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by a hash of its inputs:
+    the source, every header in ``csrc/`` and the flags."""
     h = hashlib.sha256()
-    for src in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

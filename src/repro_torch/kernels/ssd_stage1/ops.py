@@ -15,8 +15,11 @@ decay in fp32 before splitting. Its plain version is
 :func:`repro_torch.models.layers.ssm.ssd_stage1`.
 
 The gradient is the port's own kernel, ``csrc/ssd_stage1_bwd.cu`` (the TPU
-kernel has no backward), behind :func:`ssd_stage1_backward_cuda`, whose
-plain version is :func:`repro_torch.models.layers.ssm.ssd_stage1_backward`.
+kernel has no backward), on the tensor cores in split TF32 as the forward
+(the two share ``csrc/ssd_tf32.cuh``): three kernels behind one C entry, the
+decays applied in fp32 before the split, every sum in a fixed order. It is
+behind :func:`ssd_stage1_backward_cuda`, whose plain version is
+:func:`repro_torch.models.layers.ssm.ssd_stage1_backward`.
 :class:`SSDStage1Function` ties the two wrappers together for autograd: on
 CUDA tensors its forward and backward launch the kernels, on CPU tensors
 they run the plain versions.
@@ -44,12 +47,14 @@ MAX_CHUNK = 1024
 
 _ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 _BWD_ARGS = (ctypes.c_void_p,) * 19 + (ctypes.c_longlong,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-#: The backward's split of its work: groups of at least this many heads
-#: share a dS tile's work, and slices of at least this many (head, column)
-#: pairs the state term of dB; each sum over them is taken in a fixed order.
-BWD_HEADS_PER_GROUP = 8
-BWD_PAIRS_PER_SLICE = 256
-_MAX_GRID_Z = 65535
+# The backward's split of its work over heads: groups of at most
+# _HEADS_PER_GROUP heads share a dS tile's work (kHG in
+# csrc/ssd_stage1_bwd.cu, which takes no more), and at most _STATE_GROUPS
+# groups of at least _HEADS_PER_STATE_GROUP heads the state term of dB; each
+# sum over the groups is taken in a fixed order.
+_HEADS_PER_GROUP = 8
+_HEADS_PER_STATE_GROUP = 4
+_STATE_GROUPS = 16
 
 Tensor = torch.Tensor
 
@@ -101,6 +106,14 @@ def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tenso
     return y, s
 
 
+def _head_groups(nh: int, count: int) -> int:
+    """The number of groups when ``nh`` heads are cut into about ``count``
+    groups of ceil(nh / count) heads each (the kernel's split, which gives
+    every group but the last that many): as few as leave no group empty,
+    and at least 1."""
+    return common.cdiv(nh, common.cdiv(nh, count)) if nh else 1
+
+
 def ssd_stage1_backward_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: Tensor,
                              ds: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The gradient of SSD Stage 1: the forward's inputs and the incoming
@@ -114,20 +127,20 @@ def ssd_stage1_backward_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: T
     g, q, nh, p = u.shape
     n = b.shape[-1]
     t = common.cdiv(q, 64)  # the kernel's q and k tiles
-    z = max(1, _MAX_GRID_Z // max(g, 1))  # the grid's third dimension holds G x groups
-    hs = max(1, min(nh // BWD_HEADS_PER_GROUP, z))
-    js = max(1, min(nh * p // BWD_PAIRS_PER_SLICE, 16, z))
+    ld = common.round_up(q, 4)  # 16-byte rows of the [Q, Q] scratch
+    hs = _head_groups(nh, common.cdiv(nh, _HEADS_PER_GROUP))
+    js = _head_groups(nh, min(_STATE_GROUPS, common.cdiv(nh, _HEADS_PER_STATE_GROUP)))
 
     def f32(*shape: int) -> Tensor:
         return torch.empty(shape, dtype=torch.float32, device=u.device)
 
     du, ddac, db, dc = torch.empty_like(u), torch.empty_like(dac), torch.empty_like(b), torch.empty_like(c)
-    # Scratch: cum and e [G, Q, H], C·Bᵀ and its gradient [G, Q, Q], the
-    # head groups' parts of that gradient [G, HS, Q, Q], the partial row and
-    # column sums [G, T, Q, H], r [G, Q, H] and the slices' parts of dB's
-    # state term [G, JS, Q, N].
-    scratch = (f32(g, q, nh), f32(g, q, nh), f32(g, q, q), f32(g, q, q), f32(g, hs, q, q),
-               f32(g, t, q, nh), f32(g, t, q, nh), f32(g, q, nh), f32(g, js, q, n))
+    # Scratch: cum and e [G, Q, H], C·Bᵀ and its gradient [G, Q, ld], the
+    # head groups' parts of that gradient [G, HS, Q, ld], the row and column
+    # sums of G over half tiles [G, 2T, H, Q], r [G, Q, H] and the head
+    # groups' parts of dB's state term [G, JS, Q, N].
+    scratch = (f32(g, q, nh), f32(g, q, nh), f32(g, q, ld), f32(g, q, ld), f32(g, hs, q, ld),
+               f32(g, 2 * t, nh, q), f32(g, 2 * t, nh, q), f32(g, q, nh), f32(g, js, q, n))
     common.call(
         "ssd_stage1_bwd", "ssd_stage1_bwd", "ssd_stage1_bwd_f32", _BWD_ARGS, u.device,
         [x.data_ptr() for x in (u, dac, b, c, dy, ds, du, ddac, db, dc, *scratch)]

@@ -7,6 +7,8 @@ kernels themselves run only on the card, where ``chip_smoke.py`` holds each
 one against these plain versions.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -193,3 +195,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             partition_stage1_cuda_batched(*t, m=10)
         else:
             thomas_cuda(*(a.to("meta") for a in t))
+
+
+# ------------------------------------------------------------ build hash --
+@pytest.mark.parametrize("header", ["common.cuh", "ssd_tf32.cuh"])
+def test_library_path_follows_every_header(header, tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    path = csrc / header
+    text = path.read_bytes()
+    path.write_bytes(text + b"\n// edited\n")
+    for name in build.SOURCES:
+        assert build.library_path(name) != before[name], (name, header)
+    path.write_bytes(text)
+    assert {name: build.library_path(name) for name in build.SOURCES} == before
+    (csrc / "added.cuh").write_bytes(b"#pragma once\n")
+    assert all(build.library_path(name) != before[name] for name in build.SOURCES)
