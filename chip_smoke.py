@@ -183,6 +183,27 @@ Phases:
    SSD launch per layer a step (the counts zeroed just before the run),
    peak memory; then one step's split into forward, backward and optimizer
    (CUDA events) and its device profile.
+9. ``lm_mesh``: the sharded LM path on four logical ranks of the card, a
+   (data = 2, model = 2) mesh, one process a rank (``mp.spawn``; the
+   ranks load the kernels this process built), gloo staging every
+   collective through the host. (a) mamba2-1.3b, qwen3-4b and
+   moonshot-v1-16b-a3b at full width cut to 2 layers, fp32, TF32 off:
+   one sharded AdamW train step (4 x 256 tokens) and a prefill of 4 x 64
+   with 4 greedy decode steps against the unsharded run on the same
+   weights (the training gate, the LM gate); qwen3-4b also under
+   ``sp_tp``, ``dp_only`` and a ``seq_shard`` decode at batch 1, moonshot
+   (at capacity_factor E/k, so neither side drops) also with the int8
+   expert gather (loss within 0.05). (b) mamba2-1.3b and qwen3-4b at full
+   size in bf16 through ``serve(use_mesh="single")``: 4 requests, 8 new
+   tokens, finite logits, prefill and decode times, each rank's peak
+   memory, the greedy tokens agreeing with the unsharded serve (bf16:
+   reported). Every rank's SSD launch counts: one forward a layer a
+   prefill and a train step, one backward a layer a train step.
+
+The two largest reduced-system rows of ``kernels`` (n = 1e6 fp64, n = 1e5
+fp32) hold the kernel against the fp64 host oracle ``thomas_numpy`` (the
+row's ``plain_source``): the on-card loop of torch ops takes minutes there.
+Each phase prints its seconds and the run prints them all with the total.
 
 It exits non-zero when there is no CUDA device, when the port cannot be
 imported, or when any phase fails. The line before the last is the
@@ -195,6 +216,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -223,7 +245,8 @@ PROFILE_ATTEMPTS = 5
 # incomplete trace.
 PROFILE_PAD = 64
 M = 10
-ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm", "train")
+ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm", "train",
+              "lm_mesh")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
@@ -516,6 +539,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
     from repro_torch.core.tridiag.batched import fuse_systems
     from repro_torch.core.tridiag.partition import partition_stage1, partition_stage3
     from repro_torch.core.tridiag.ragged import fuse_ragged
+    from repro_torch.core.tridiag.reference import thomas_numpy
     from repro_torch.core.tridiag.thomas import thomas
     from repro_torch.kernels import common
     from repro_torch.kernels.common import assert_allclose_by_dtype
@@ -565,7 +589,8 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
               plain_warmup: int = 2,
               library: Optional[Callable[[], Any]] = None,
               peak: Optional[float] = None, host: bool = False,
-              compare: Optional[Callable[[Any, Any], None]] = None) -> Tuple[Any, float]:
+              compare: Optional[Callable[[Any, Any], None]] = None,
+              plain_source: Optional[str] = None) -> Tuple[Any, float]:
         """Run, compare and time one kernel against its plain version (and
         one PyTorch call computing the same function, where there is one);
         returns the kernel's output and its median ms. ``ms`` (and
@@ -577,9 +602,15 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         host's time for the wrapper to return from an idle card, which
         accounts for the gap between ``ms`` and ``device_ms``. ``compare``
         holds one output against the plain version's (default: the
-        tolerance ladder of ``dtype``)."""
+        tolerance ladder of ``dtype``). ``plain_source`` names a plain
+        version that is not the on-card PyTorch one (the host oracle); its
+        ``plain_ms`` is then host-clock time, copies included."""
         got = kernel()
-        plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
+        if plain_source is None:
+            plain_ms, want = timed_cuda(plain, reps=plain_reps, warmup=plain_warmup)
+        else:
+            want = plain()
+            plain_ms = host_ms(plain, reps=plain_reps)
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
         for g, w in pairs:
@@ -602,11 +633,13 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
+            "plain_source": plain_source or "on-card PyTorch (the reference stage)",
         }
         if host:
             row["enqueue_ms"] = enqueue_ms(kernel, reps=10)
         rows.append(row)
         log(f"  {name}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            + (f"(plain: {plain_source}) " if plain_source else "") +
             f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
             f"device_ms={dev_ms:.4f} (share {b_ms / dev_ms:.3f})"
             + (f" enqueue_ms={row['enqueue_ms']:.4f}" if host else "")
@@ -622,7 +655,12 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         return bsz * (3 * p * (m - 1) + p + 1 + p * m) * es, bsz * 4 * p * (m - 1)
 
     def check_thomas(tag: str, dtype: torch.dtype, es: int, ops4: Tuple[torch.Tensor, ...],
-                     wide: bool = False, **kw: Any) -> float:
+                     wide: bool = False, oracle: bool = False, **kw: Any) -> float:
+        """A Thomas row. ``oracle``: the plain version is the fp64 host
+        oracle ``thomas_numpy`` (copies to and from the host included in its
+        time), held to ``dtype``'s ladder, where the per-row loop of torch
+        ops on the card would take minutes (the n = 1e6 fp64 and n = 1e5
+        fp32 reduced systems)."""
         if wide:  # (n, B) rows of the interleaved layout
             tn, bsz = tuple(ops4[1].shape)
             name = f"thomas_wide/{tag}/P={tn},B={bsz}"
@@ -631,8 +669,17 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             bsz, tn = (1, ops4[1].shape[0]) if ops4[1].ndim == 1 else tuple(ops4[1].shape)
             name = f"thomas/{tag}/B={bsz},n={tn}"
             kernel, plain = thomas_cuda, thomas
-        got, ms = check(name, dtype, lambda: kernel(*ops4), lambda: plain(*ops4),
-                        5 * bsz * tn * es, 8 * bsz * tn, **kw)
+        if oracle:
+            def host_oracle() -> torch.Tensor:
+                host = [a.cpu().numpy() for a in ops4]
+                return torch.from_numpy(thomas_numpy(*host)).to(dev)
+
+            got, ms = check(name, dtype, lambda: kernel(*ops4), host_oracle,
+                            5 * bsz * tn * es, 8 * bsz * tn,
+                            plain_source="thomas_numpy (fp64, on the host)", **kw)
+        else:
+            got, ms = check(name, dtype, lambda: kernel(*ops4), lambda: plain(*ops4),
+                            5 * bsz * tn * es, 8 * bsz * tn, **kw)
         assert torch.equal(kernel(*ops4), got), f"{name}: two calls differ"
         rows2 = ops4 if wide else tuple(a.reshape(-1, tn) for a in ops4)
         at_n0, at_64 = alternating_ms([lambda: thomas_levels_cuda(*rows2, wide=wide),
@@ -698,8 +745,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         red = (c.red_dl, c.red_d, c.red_du, c.red_b)
         if dtype == torch.float64:
             # The main path's reduced system of the n = 1e7 fp64 solve,
-            # P = 1e6 rows. The plain loop takes minutes: one call.
-            check_thomas(tag, dtype, es, red, reps=10, plain_reps=1, plain_warmup=0)
+            # P = 1e6 rows, against the fp64 host oracle: the on-card loop
+            # of torch ops takes minutes here.
+            check_thomas(tag, dtype, es, red, oracle=True, reps=10, plain_reps=1,
+                         plain_warmup=0)
             # The sub-block size of the levels, swept on these rows.
             red2 = tuple(a[None] for a in red)
             rs = (8, 16, 32)
@@ -714,7 +763,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
             # The reduced system of the n = 1e6 fp32 solve (P = 1e5).
             c = partition_stage1_cuda(*(torch.as_tensor(a, device=dev)
                                         for a in system(p, 12, np_dtype)[:4]), m=M)
-            check_thomas(tag, dtype, es, (c.red_dl, c.red_d, c.red_du, c.red_b),
+            check_thomas(tag, dtype, es, (c.red_dl, c.red_d, c.red_du, c.red_b), oracle=True,
                          reps=5, plain_reps=1, plain_warmup=0)
             del c
 
@@ -732,8 +781,10 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         check(f"partition_stage3/{tag}/B={bsz},P={bp},m={M}", dtype,
               lambda: partition_stage3_cuda_batched(c, s, left),
               lambda: partition_stage3(c, s, left), *stage3_cost(bsz, bp, es))
+        # The plain per-row loop takes seconds at this size and the next
+        # ones: one untimed call fewer, one timed call (the run's 1200 s).
         check_thomas(tag, dtype, es, (c.red_dl, c.red_d, c.red_du, c.red_b),
-                     reps=5, plain_reps=2, plain_warmup=1)
+                     reps=5, plain_reps=1, plain_warmup=0)
         del dl, d, du, b, c, s, left
 
         # The interleaved solve_batched of 64 x 100,000: wide Stage 1/Stage 3
@@ -743,7 +794,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         fused = fuse_systems(*(torch.as_tensor(a, device=dev) for a in system(bn, 17, np_dtype, batch=(bsz,))[:4]))
         c = check_wide(tag, dtype, es, wide_ops(*fused, (bn,) * bsz), seed=18)
         red_w = (c.red_dl, c.red_d, c.red_du, c.red_b)
-        wide_ms = check_thomas(tag, dtype, es, red_w, wide=True, reps=5, plain_reps=1, plain_warmup=1)
+        wide_ms = check_thomas(tag, dtype, es, red_w, wide=True, reps=5, plain_reps=1, plain_warmup=0)
         red_t = tuple(a.T.contiguous() for a in red_w)
         sm_ms = cuda_ms(lambda: thomas_cuda(*red_t), reps=5)
         assert_allclose_by_dtype(thomas_cuda(*red_t).T, thomas_cuda_wide(*red_w), dtype)
@@ -778,7 +829,7 @@ def kernel_phase(dev: torch.device) -> List[Dict[str, Any]]:
         for tb in (256, 1):
             ops_np = system(4096, 13 + tb, np_dtype, batch=(tb,) if tb > 1 else ())
             check_thomas(tag, dtype, es, tuple(torch.as_tensor(a, device=dev) for a in ops_np[:4]),
-                         plain_reps=2, plain_warmup=1)
+                         plain_reps=1, plain_warmup=0)
 
         thomas_edges(dev, np_dtype, dtype)
         thomas_ignored_ends(dev, np_dtype, dtype)
@@ -3376,6 +3427,549 @@ def train_breakdown(dev: torch.device, reps: int = 5) -> None:
     del state
 
 
+# ------------------------------------------------------------------ lm_mesh --
+# The sharded LM path on four logical ranks of one card: a (data = 2,
+# model = 2) mesh, one process a rank on cuda:0, gloo collectives staged
+# through the host (NCCL refuses two ranks on one GPU).
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_RANKS = LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1]
+# Part (a): full width cut to LM_MESH_LAYERS layers, fp32, TF32 off: one
+# train step (batch LM_MESH_BATCH x LM_MESH_SEQ) and a prefill of
+# LM_MESH_PROMPT tokens plus LM_MESH_STEPS greedy decode steps, sharded
+# against rank 0's unsharded run on the same weights.
+LM_MESH_PARITY = ("mamba2-1.3b", "qwen3-4b", "moonshot-v1-16b-a3b")
+LM_MESH_LAYERS, LM_MESH_BATCH, LM_MESH_SEQ = 2, 4, 256
+LM_MESH_PROMPT, LM_MESH_STEPS = 64, 4
+# Part (b): full size in bf16 through serve(use_mesh="single") on this mesh.
+LM_MESH_SERVED = ("mamba2-1.3b", "qwen3-4b")
+LM_MESH_REQUESTS, LM_MESH_NEW, LM_MESH_SERVE_PROMPT = 4, 8, 128
+LM_MESH_PG_TIMEOUT_S = 600
+# The gates: the training gate (loss 1e-4 relative, each gradient within
+# 1e-3 of its largest magnitude), the LM gate (logits within 1e-3, the same
+# greedy tokens). The int8 expert gather is held at the training gate
+# against the unsharded step on expert stacks quantized and dequantized by
+# the reference's formula, its gathered stacks equal to that formula bit
+# for bit, and its loss within 0.05 relative of the plain unsharded loss
+# (the reference's tolerance, tests/test_perf_variants.py).
+LM_MESH_LOSS_TOL, LM_MESH_GRAD_TOL, LM_MESH_LM_TOL, LM_MESH_INT8_TOL = 1e-4, 1e-3, 1e-3, 0.05
+
+
+def lm_mesh_cfg(arch: str) -> Any:
+    """Part (a)'s config: moonshot at capacity_factor = E / k, where no
+    expert can overflow, so the sharded MoE (capacity from the local token
+    count, the reference's rule) and the unsharded one both drop nothing."""
+    from repro_torch.configs.base import get_config
+
+    base = get_config(arch)
+    extra = ({"capacity_factor": base.num_experts / base.experts_per_token}
+             if base.family == "moe" else {})
+    return family_cfg(arch, LM_MESH_LAYERS, dtype="float32", **extra)
+
+
+def lm_mesh_rank(rank: int, out_dir: str) -> None:
+    """One rank: joins the gloo group, builds the mesh, runs parts (a) and
+    (b) and writes what it measured to ``out_dir/rank<r>.pt``. Nothing is
+    caught: a failure ends the rank with a traceback and fails the spawn."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", init_method=f"file://{out_dir}/pg",
+                            rank=rank, world_size=LM_MESH_RANKS,
+                            timeout=datetime.timedelta(seconds=LM_MESH_PG_TIMEOUT_S))
+    mesh = make_debug_mesh(*LM_MESH_SHAPE, device_type="cuda")
+    dev = torch.device("cuda", 0)
+    out: Dict[str, Any] = {"parity": {}, "served": {}}
+    for arch in LM_MESH_PARITY:
+        out["parity"][arch] = lm_mesh_parity(rank, mesh, arch, dev)
+    for arch in LM_MESH_SERVED:
+        out["served"][arch] = lm_mesh_serve(rank, mesh, arch, dev)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def lm_mesh_greedy(model: Any, params: Any, tokens: torch.Tensor, pctx: Any,
+                   max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prefill and LM_MESH_STEPS greedy decode steps: every step's last
+    logits (global batch, every vocab entry) and the tokens."""
+    b, s = tokens.shape
+    logits, caches = model.prefill(params, {"tokens": tokens}, pctx, max_len=max_len)
+    steps, toks = [logits[:, -1].float()], []
+    nxt = torch.argmax(logits[:, -1:], dim=-1)
+    for i in range(LM_MESH_STEPS):
+        toks.append(nxt)
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=tokens.device)
+        logits, caches = model.decode_step(params, caches, {"token": nxt, "pos": pos}, pctx)
+        steps.append(logits[:, -1].float())
+        nxt = torch.argmax(logits[:, -1:], dim=-1)
+    return torch.stack(steps), torch.cat(toks, dim=1)
+
+
+def int8_qdq(w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """The reference's int8 expert gather (``repro/models/layers/moe.py``
+    ``_int8_allgather``) as every gathering rank sees it: ``w`` [E, ...] cut
+    into ``n`` source shards along ``dim``, each shard's experts quantized
+    to int8 with one scale each (the largest magnitude, at least 1e-8, over
+    127) and dequantized in fp32."""
+    parts = []
+    for c in w.float().chunk(n, dim=dim):
+        scale = c.abs().amax(dim=tuple(range(1, c.ndim))).clamp(min=1e-8) / 127.0
+        s = scale.reshape((-1,) + (1,) * (c.ndim - 1))
+        parts.append(torch.clamp(torch.round(c / s), -127, 127) * s)
+    return torch.cat(parts, dim=dim).to(w.dtype)
+
+
+def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[str, Any]:
+    """Part (a) for one arch. Each rank draws the full weights from seed 0
+    (the same bits on one card; for moonshot two ranks at a time), keeps
+    its shard for every variant, runs the unsharded train step on them and
+    keeps its slice of the unsharded gradients (rank 0 also the unsharded
+    decode); for the int8 gather also the unsharded step on the expert
+    stacks passed through :func:`int8_qdq`, and this rank's slice of those
+    stacks.
+    Then every variant runs sharded and each rank holds its slices against
+    the unsharded ones, with no gradient crossing the host; the AdamW step's
+    reference is AdamW (elementwise) on this rank's unsharded slices."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.sharding import gather_fsdp, shard_params, shard_tensor
+    from repro_torch.train.step import apply_gradients, init_train_state, make_grad_fn
+
+    cfg = lm_mesh_cfg(arch)
+    model, opt = build_model(cfg), adamw(TRAIN_LR)
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=LM_MESH_SEQ,
+                              global_batch=LM_MESH_BATCH).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    prompts = batch["tokens"][:, :LM_MESH_PROMPT].contiguous()
+    max_len = LM_MESH_PROMPT + LM_MESH_STEPS
+    n_ssd = ssm_layers(cfg)
+    res: Dict[str, Any] = {}
+    t_arch = time.perf_counter()
+
+    def stage(what: str) -> None:
+        if rank == 0:
+            log(f"    [{arch}] {what}: {time.perf_counter() - t_arch:.1f} s")
+
+    variants = {"tp": ("tp", {})}
+    if cfg.family == "moe":
+        variants["int8"] = ("tp", {"int8_moe_gather": True})
+    if arch == "qwen3-4b":
+        variants.update(sp_tp=("sp_tp", {}), dp_only=("dp_only", {}),
+                        seq_shard=("tp", {"seq_shard": True}))
+    ctxs = {label: dc.replace(make_ctx(mesh, remat="none", strategy=st), **ch)
+            for label, (st, ch) in variants.items()}
+    # Variants whose parameter specs agree share one shard (restored in
+    # place after each train step) and one set of unsharded slices.
+    shard_of = {label: "dp_only" if st == "dp_only" else "tp" for label, (st, _) in variants.items()}
+    # The unsharded gradients each variant is held against: the int8
+    # gather's are its own (quantized expert stacks), on the tp shard.
+    ref_of = {label: label if label == "int8" else shard_of[label] for label in variants}
+    local: Dict[str, Any] = {}
+    want: Dict[str, Dict[str, torch.Tensor]] = {}
+    want_max: Dict[str, Dict[str, float]] = {}  # each leaf's largest unsharded gradient
+    want_deq: Dict[str, torch.Tensor] = {}  # this rank's slice of each int8_qdq stack
+    floor: Dict[str, Dict[str, float]] = {}  # each leaf's rounding floor (rounding_floor)
+
+    def host(t: torch.Tensor) -> torch.Tensor:
+        """A copy in (pinned) host memory."""
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=dev.type == "cuda")
+        return out.copy_(t)
+
+    decoded: Dict[str, Any] = {}
+    loss_want: Dict[str, torch.Tensor] = {}
+
+    def unsharded_step(full: Any, refs: List[str], key: str) -> None:
+        """The unsharded train step on ``full``: its loss as ``key``, and
+        the slices of its gradients on each shard of ``refs``."""
+        loss, _, grads = make_grad_fn(model, cfg, ParallelCtx())(full, batch)
+        loss_want[key] = loss.detach()
+        for ref in refs:
+            specs = local[shard_of[ref]].shard_specs
+            # kept on the host: the four ranks share the card
+            want[ref] = {k: host(shard_tensor(g, specs[k], ctxs[ref])) for k, g in grads.items()}
+            want_max[ref] = {k: float(g.abs().max()) for k, g in grads.items()}
+        del grads, loss
+
+    def rounding_floor(full: Any, refs: List[str]) -> None:
+        """Each leaf's rounding floor in fp32: how far its unsharded
+        gradient moves when every weight moves by one unit in its last
+        place (its lowest bit flipped: up or down by about 2^-23 of
+        itself), as the sharded step's other rounding moves its
+        activations; this rank's slices against the unsharded ones. The
+        same flip restores the weights bit for bit."""
+        def flip() -> None:
+            with torch.no_grad():
+                for p in full.parameters():
+                    bits = p.view({4: torch.int32, 2: torch.int16}[p.element_size()])
+                    bits.bitwise_xor_(1)
+
+        flip()
+        _, _, grads = make_grad_fn(model, cfg, ParallelCtx())(full, batch)
+        flip()
+        for ref in refs:
+            specs = local[shard_of[ref]].shard_specs
+            floor[ref] = {k: float((shard_tensor(g, specs[k], ctxs[ref])
+                                    - want[ref][k].to(dev)).abs().max()) for k, g in grads.items()}
+        del grads
+
+    def expert_stack(name: str) -> bool:
+        """A routed expert stack (the int8 gather's), not a shared expert's."""
+        parts = name.split(".")
+        return parts[-1] in ("w1", "w2", "w3") and parts[-2] == "moe"
+    # moonshot's full weights and gradients (~15 GB in fp32) go two ranks
+    # at a time; the smaller models' all at once.
+    turns = 2 if cfg.family == "moe" else 1
+    for turn in range(turns):
+        if turn == rank % turns:
+            full = model.init(0, device=dev)
+            for label, pctx in ctxs.items():
+                if shard_of[label] == label:
+                    local[label] = shard_params(full, cfg, pctx)
+            if rank == 0:
+                with torch.inference_mode():
+                    decoded["4"] = lm_mesh_greedy(model, full, prompts, ParallelCtx(), max_len)
+                    decoded["1"] = lm_mesh_greedy(model, full, prompts[:1], ParallelCtx(),
+                                                  max_len)
+            full.requires_grad_(True)
+            unsharded_step(full, list(local), "plain")
+            rounding_floor(full, list(local))
+            if "int8" in ctxs:
+                pctx8, specs = ctxs["int8"], local["tp"].shard_specs
+                with torch.no_grad():
+                    for k, p in full.named_parameters():
+                        if expert_stack(k):
+                            dim = specs[k].index(pctx8.fsdp_axis)  # the source shards' dim
+                            p.copy_(int8_qdq(p, dim, pctx8.axis_size(pctx8.fsdp_axis)))
+                            model_only = tuple(None if d == dim else ax
+                                               for d, ax in enumerate(specs[k]))
+                            want_deq[k] = host(shard_tensor(p, model_only, pctx8))
+                assert want_deq, (arch, "no expert stack found for the int8 gather")
+                unsharded_step(full, ["int8"], "int8")
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    stage("the ranks' turns: weights drawn and sharded, the unsharded step run")
+
+    def counts() -> Dict[str, int]:
+        return {n: LAUNCH_COUNTERS[n].count for n in ("ssd_stage1", "ssd_stage1_bwd")}
+
+    def zero() -> None:
+        for c in LAUNCH_COUNTERS.values():
+            c.reset()
+
+    def decode(label: str, key: str) -> None:
+        pctx = ctxs[label]
+        tokens = prompts if key == "4" else prompts[:1]
+        zero()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params = gather_fsdp(local[shard_of[label]], pctx)  # once, as serve does
+            logits, toks = lm_mesh_greedy(model, params, tokens, pctx, max_len)
+            del params
+        torch.cuda.synchronize()
+        res[f"{label}_decode_s"] = time.perf_counter() - t0
+        res[f"{label}_decode_launches"] = counts()
+        torch.cuda.empty_cache()
+        stage(f"{label} decode")
+        if rank == 0:
+            w_logits, w_toks = decoded[key]
+            real = slice(0, cfg.vocab_size)  # the padded vocab's -1e30 aside
+            scale = float(w_logits[..., real].abs().max())
+            err = float((logits[..., real] - w_logits[..., real]).abs().max())
+            assert err <= LM_MESH_LM_TOL * scale, (arch, label, err, scale)
+            assert bool(torch.equal(toks, w_toks)), (arch, label, toks, w_toks)
+            res[f"{label}_decode_err"] = err / scale
+        # one prefill: one SSD launch per SSM layer; the decode steps none
+        assert res[f"{label}_decode_launches"]["ssd_stage1"] == n_ssd, \
+            (arch, label, res[f"{label}_decode_launches"])
+
+    def train(label: str, tol: float = LM_MESH_LOSS_TOL) -> None:
+        pctx = ctxs[label]
+        params = local[shard_of[label]]
+        w0 = {k: host(p.detach()) for k, p in params.named_parameters()}
+        state = init_train_state(model, cfg, opt, 0, params=params)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(model, cfg, pctx)(state.params, batch)
+        state, _ = apply_gradients(state, grads, opt, pctx=pctx)
+        torch.cuda.synchronize()
+        res[f"{label}_step_s"] = time.perf_counter() - t0
+        res[f"{label}_train_launches"] = counts()
+        stage(f"{label} train step")
+        assert res[f"{label}_train_launches"] == {"ssd_stage1": n_ssd, "ssd_stage1_bwd": n_ssd}, \
+            (arch, label, res[f"{label}_train_launches"])
+        want_loss = float(loss_want["int8" if label == "int8" else "plain"])
+        rel = abs(float(loss) - want_loss) / abs(want_loss)
+        assert rel <= tol, (arch, label, float(loss), want_loss)
+        res[f"{label}_loss"], res[f"{label}_loss_rel"] = float(loss), rel
+        if label == "int8":  # and against the plain unsharded loss
+            plain = float(loss_want["plain"])
+            res["int8_plain_rel"] = abs(float(loss) - plain) / abs(plain)
+            assert res["int8_plain_rel"] <= LM_MESH_INT8_TOL, (arch, float(loss), plain)
+        del state  # the optimizer's moments
+        compare(label, w0, grads, dict(params.named_parameters()))
+        del grads
+        with torch.no_grad():  # the shard back to the drawn weights
+            for k, p in params.named_parameters():
+                p.copy_(w0[k])
+        params.requires_grad_(False)
+        del w0
+        torch.cuda.empty_cache()
+
+    def compare(label: str, w0: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                after: Dict[str, torch.Tensor]) -> None:
+        """This rank's gradients and AdamW step against its unsharded slices
+        (AdamW is elementwise: its step on those slices is the reference),
+        in one pass a leaf; the ranks' largest magnitudes by one all-reduce."""
+        w_want, gmax = want[ref_of[label]], want_max[ref_of[label]]
+        names = list(grads)
+        # grad, step, largest step, the leaf's rounding floor
+        errs = torch.zeros(len(names), 4, dtype=torch.float64)
+        for i, k in enumerate(names):
+            w, p0 = w_want[k].to(dev), w0[k].to(dev)
+            errs[i, 3] = floor.get(ref_of[label], {}).get(k, float("nan"))
+            upd = opt.update({k: w}, opt.init({k: p0}), {k: p0}, 0)[0][k].float()
+            errs[i, 0] = float((grads[k] - w).abs().max())
+            errs[i, 2] = float(upd.abs().max())
+            # The step p_after - p_before where the gradient is resolved
+            # (as train_parity (ii)), beyond one ulp of the parameter.
+            resolved = (w.abs() > 1e-2 * gmax[k]) & (w.abs() > 1e3 * 1e-8)
+            if bool(resolved.any()):
+                p1, p0 = after[k].detach().float(), p0.float()
+                big = torch.maximum(p0.abs(), p1.abs())
+                ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+                over = ((p1 - p0) - upd).abs() - ulp
+                errs[i, 1] = float(over[resolved].clamp(min=0).max())
+        errs = errs.to(dev)
+        dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+        worst_g = worst_p = 0.0
+        worst_leaf, worst_floor = "", float("nan")
+        for i, k in enumerate(names):
+            err_g, err_p, smax, err_floor = (float(v) for v in errs[i])
+            assert err_g <= LM_MESH_GRAD_TOL * gmax[k] or gmax[k] == 0.0, (arch, label, k, err_g)
+            if gmax[k] and err_g / gmax[k] > worst_g:
+                worst_g, worst_leaf, worst_floor = err_g / gmax[k], k, err_floor / gmax[k]
+            worst_p = max(worst_p, err_p / smax if smax else 0.0)
+        assert worst_p <= LM_MESH_GRAD_TOL, (arch, label, worst_p)
+        res[f"{label}_grad_err"], res[f"{label}_param_err"] = worst_g, worst_p
+        res[f"{label}_grad_leaf"], res[f"{label}_grad_floor"] = worst_leaf, worst_floor
+
+    decode("tp", "4")
+    train("tp")
+    if "int8" in ctxs:
+        with torch.no_grad():  # the gathered stacks against the formula, bit for bit
+            gathered = dict(gather_fsdp(local["tp"], ctxs["int8"]).named_parameters())
+            for k, w in want_deq.items():
+                assert torch.equal(gathered[k], w.to(dev)), (arch, "int8 gather", k)
+            del gathered
+        res["int8_deq_leaves"] = len(want_deq)
+        train("int8")
+    for label in ("sp_tp", "dp_only"):
+        if label in ctxs:
+            train(label)
+    if "seq_shard" in ctxs:
+        decode("seq_shard", "1")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    local.clear()
+    want.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_mesh_serve(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[str, Any]:
+    """Part (b): ``serve(use_mesh="single")`` at full size in bf16 with the
+    production mesh replaced by this one; rank 0 also serves unsharded on
+    the same weights, and the greedy tokens that agree are counted (bf16:
+    reported, not asserted)."""
+    import torch.distributed as dist
+
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_MESH_SERVE_PROMPT)
+               for _ in range(LM_MESH_REQUESTS)]
+
+    def requests() -> List[Any]:
+        return [serve_mod.Request(rid=i, prompt=p, max_new=LM_MESH_NEW)
+                for i, p in enumerate(prompts)]
+
+    # Rank 0 keeps the full weights for its unsharded run; the others let
+    # serve draw them from the same seed and drop them once sharded.
+    full = build_model(cfg).init(0, device=dev, max_dec_len=256) if rank == 0 else None
+    torch.cuda.reset_peak_memory_stats()
+    out: Dict[str, Any] = {}
+    serve_mod.make_production_mesh = lambda **_: mesh  # type: ignore[assignment]
+    steps = serve_mod.make_decode_step, serve_mod.make_prefill_step
+    times: Dict[str, List[float]] = {"decode": [], "prefill": []}
+
+    def checked(make: Callable[..., Any], kind: str) -> Callable[..., Any]:
+        """The launcher's step, its logits checked finite and its host-clock
+        time (the card synchronised before and after) recorded."""
+        def build(*args: Any, **kwargs: Any) -> Callable[..., Any]:
+            step = make(*args, **kwargs)
+
+            def run(*a: Any) -> Any:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = step(*a)
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                assert bool(torch.isfinite(logits).all()), (arch, "non-finite logits")
+                return logits, caches
+            return run
+        return build
+
+    serve_mod.make_decode_step, serve_mod.make_prefill_step = (
+        checked(f, k) for f, k in zip(steps, ("decode", "prefill")))
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+    t0 = time.perf_counter()
+    done, stats = serve_mod.serve(arch=arch, requests=requests(), batch_slots=LM_MESH_REQUESTS,
+                                  smoke=False, use_mesh="single", device=dev, params=full,
+                                  seed=0)
+    if rank == 0:
+        log(f"    [{arch}] served on the mesh: {time.perf_counter() - t0:.1f} s")
+    out["launches"] = LAUNCH_COUNTERS["ssd_stage1"].count
+    # one SSD launch per SSM layer a prefill, none a decode step
+    assert out["launches"] == ssm_layers(cfg) * stats["prefills"], (arch, out["launches"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stats"] = stats
+    out["ms"] = {k: list(v) for k, v in times.items()}
+    out["tokens"] = [r.out for r in done]
+    for v in times.values():
+        v.clear()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        plain, pstats = serve_mod.serve(arch=arch, requests=requests(),
+                                        batch_slots=LM_MESH_REQUESTS, smoke=False, device=dev,
+                                        params=full)
+        out["plain_stats"] = pstats
+        out["plain_ms"] = {k: list(v) for k, v in times.items()}
+        out["agree"] = sum(a == b for r, q in zip(done, plain) for a, b in zip(r.out, q.out))
+        out["agree_first"] = sum(r.out[0] == q.out[0] for r, q in zip(done, plain))
+    serve_mod.make_decode_step, serve_mod.make_prefill_step = steps
+    del full
+    dist.barrier()
+    return out
+
+
+def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
+    """The sharded LM path on four logical ranks of the card; returns the
+    SSD kernels' launches on each rank over part (a)'s driven runs."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    import gc
+
+    from repro_torch.core.tridiag.plan import clear_executable_cache
+
+    # The earlier phases' graphs and cached blocks go back to the card
+    # first: the ranks share it with this process.
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.3f} GB of the card")
+    out_dir = tempfile.mkdtemp(prefix="lm_mesh_")
+    # Four processes share the card: the ranks' allocators (set up after
+    # the spawn) give freed memory back in any size.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    log(f"  {LM_MESH_RANKS} logical ranks on {dev}, mesh (data, model) = {LM_MESH_SHAPE}, "
+        f"gloo ('cpu:gloo,cuda:gloo'), collectives staged through the host")
+    mp.spawn(lm_mesh_rank, args=(out_dir,), nprocs=LM_MESH_RANKS, join=True)
+    ranks = [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+             for r in range(LM_MESH_RANKS)]
+    launches: Dict[str, List[Dict[str, int]]] = {"ssd_stage1": [], "ssd_stage1_bwd": []}
+    for arch in LM_MESH_PARITY:
+        r0 = ranks[0]["parity"][arch]
+        cfg = lm_mesh_cfg(arch)
+        labels = [k[:-len("_loss_rel")] for k in r0 if k.endswith("_loss_rel")]
+        for label in labels:
+            worst = {what: max(r["parity"][arch][f"{label}_{what}_err"] for r in ranks)
+                     for what in ("grad", "param")}
+            leaf = max(ranks, key=lambda r: r["parity"][arch][f"{label}_grad_err"])
+            floor_note = ("" if math.isnan(leaf["parity"][arch][f"{label}_grad_floor"]) else
+                          f", whose rounding floor, the unsharded gradient moved by moving "
+                          f"every weight by one unit in its last place, reads "
+                          f"{leaf['parity'][arch][f'{label}_grad_floor']:.3e}")
+            grads = (f"gradients {worst['grad']:.3e} of their largest magnitude (worst leaf "
+                     f"{leaf['parity'][arch][f'{label}_grad_leaf']}{floor_note}), AdamW step "
+                     f"{worst['param']:.3e} of its largest")
+            if label == "int8":
+                grads += (f"; against the unsharded step on the quantized expert stacks; "
+                          f"{r0['int8_deq_leaves']} gathered stacks equal to the reference's "
+                          f"formula bit for bit on every rank; loss {r0['int8_plain_rel']:.2e} "
+                          f"relative to the plain unsharded loss (gate {LM_MESH_INT8_TOL})")
+            log(f"  (a) {arch} full width, {LM_MESH_LAYERS} layers, fp32, "
+                f"{LM_MESH_BATCH}x{LM_MESH_SEQ}, {label}: loss {r0[f'{label}_loss']:.7f} "
+                f"(rel {r0[f'{label}_loss_rel']:.2e} to unsharded), {grads}; "
+                f"one step {r0[f'{label}_step_s']:.3f} s "
+                f"(host clock, gloo on one card); launches per rank "
+                f"{[r['parity'][arch][f'{label}_train_launches'] for r in ranks]}")
+        for label in ("tp", "seq_shard"):
+            if f"{label}_decode_err" in r0:
+                log(f"  (a) {arch} {label} decode: prefill {LM_MESH_PROMPT} + "
+                    f"{LM_MESH_STEPS} steps, logits {r0[f'{label}_decode_err']:.3e} of their "
+                    f"largest magnitude, same greedy tokens; {r0[f'{label}_decode_s']:.3f} s; "
+                    f"launches per rank "
+                    f"{[r['parity'][arch][f'{label}_decode_launches'] for r in ranks]}")
+        log(f"  (a) {arch}: peak memory per rank (GB) "
+            f"{[round(r['parity'][arch]['peak_gb'], 3) for r in ranks]}")
+        for r in ranks:
+            got = r["parity"][arch]
+            if ssm_layers(cfg):
+                launches["ssd_stage1"].append(got["tp_train_launches"]["ssd_stage1"]
+                                              + got["tp_decode_launches"]["ssd_stage1"])
+                launches["ssd_stage1_bwd"].append(got["tp_train_launches"]["ssd_stage1_bwd"])
+    for arch in LM_MESH_SERVED:
+        r0 = ranks[0]["served"][arch]
+        ms, pms = r0["ms"], r0["plain_ms"]
+        n_tok = LM_MESH_REQUESTS * LM_MESH_NEW
+        log(f"  (b) {arch} full size bf16, {LM_MESH_REQUESTS} requests x "
+            f"{LM_MESH_SERVE_PROMPT} tokens, {LM_MESH_NEW} new: prefill {ms['prefill'][0]:.3f} "
+            f"ms, decode {statistics.median(ms['decode']):.3f} ms a step (median of "
+            f"{len(ms['decode'])}; host clock, the card synchronised; 4 logical ranks, gloo) "
+            f"against unsharded {pms['prefill'][0]:.3f} / {statistics.median(pms['decode']):.3f} "
+            f"ms; greedy tokens agreeing "
+            f"with unsharded {r0['agree']} of {n_tok}, first tokens {r0['agree_first']} of "
+            f"{LM_MESH_REQUESTS} (bf16, reported); peak memory per rank "
+            f"(GB) {[round(r['served'][arch]['peak_gb'], 3) for r in ranks]}; ssd_stage1 "
+            f"launches per rank {[r['served'][arch]['launches'] for r in ranks]}")
+        assert all(r["served"][arch]["tokens"] == ranks[0]["served"][arch]["tokens"]
+                   for r in ranks)
+        assert all(0 <= t < get_vocab(arch) for q in r0["tokens"] for t in q)
+    return launches
+
+
+def get_vocab(arch: str) -> int:
+    from repro_torch.configs.base import get_config
+
+    return get_config(arch).vocab_size
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3399,6 +3993,8 @@ def main() -> int:
     log(f"card: {card_line()}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
+    t_start = time.perf_counter()
+    seconds: Dict[str, float] = {}
     t0 = time.perf_counter()
     info = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(info)}")
@@ -3412,7 +4008,8 @@ def main() -> int:
         log("kernels: each kernel against its plain version on the card")
         t0 = time.perf_counter()
         rows = kernel_phase(dev)
-        log(f"kernels: {time.perf_counter() - t0:.1f} s")
+        seconds["kernels"] = time.perf_counter() - t0
+        log(f"kernels: {seconds['kernels']:.1f} s")
     # Launch counts come from the path that runs each kernel (the main phase
     # for the solver's, the lm phase for the SSD kernel's); a kernel whose
     # path did not run has none.
@@ -3421,45 +4018,63 @@ def main() -> int:
         log("main: TridiagSession(device='cuda', backend='auto', heuristic policy)")
         t0 = time.perf_counter()
         launches.update(main_phase(dev))
-        log(f"main: {time.perf_counter() - t0:.1f} s")
+        seconds["main"] = time.perf_counter() - t0
+        log(f"main: {seconds['main']:.1f} s")
     if "breakdown" in phases:
         log("breakdown: where one n=1e7 fp64 solve and one interleaved 1024x10000 "
             "solve_batched spend their time (CUDA events)")
         t0 = time.perf_counter()
         breakdown_phase(dev)
-        log(f"breakdown: {time.perf_counter() - t0:.1f} s")
+        seconds["breakdown"] = time.perf_counter() - t0
+        log(f"breakdown: {seconds['breakdown']:.1f} s")
     closed_loop: Dict[str, int] = {}
     if "closed_loop" in phases:
         log("closed_loop: staged chunk campaigns, a live refit from served telemetry and "
             "predicted-latency admission (fp64, m=10, backend='cuda')")
         t0 = time.perf_counter()
         closed_loop = closed_loop_phase(dev)
-        log(f"closed_loop: {time.perf_counter() - t0:.1f} s")
+        seconds["closed_loop"] = time.perf_counter() - t0
+        log(f"closed_loop: {seconds['closed_loop']:.1f} s")
     mesh: Dict[str, int] = {}
     if "mesh" in phases:
         log(f"mesh: TridiagSession(mesh=('{dev}',) * {MESH_SHARDS}), logical shards on one card, "
             f"backend='cuda', m=10")
         t0 = time.perf_counter()
         mesh = mesh_phase(dev)
-        log(f"mesh: {time.perf_counter() - t0:.1f} s")
+        seconds["mesh"] = time.perf_counter() - t0
+        log(f"mesh: {seconds['mesh']:.1f} s")
     if "lm" in phases:
         log(f"lm: {', '.join(LM_SERVED)} through repro_torch.launch.serve (Model.prefill/"
             f"decode_step, ssd_scan_kernel, attention)")
         t0 = time.perf_counter()
         launches.update(lm_phase(dev))
-        log(f"lm: {time.perf_counter() - t0:.1f} s")
+        seconds["lm"] = time.perf_counter() - t0
+        log(f"lm: {seconds['lm']:.1f} s")
     train: Dict[str, int] = {}
     if "train" in phases:
         log("train: repro_torch.launch.train.run_training / make_train_step (Model.train_logits, "
             "SSDStage1Function: ssd_stage1 forward, ssd_stage1_bwd backward, AdamW)")
         t0 = time.perf_counter()
         train = train_phase(dev)
-        log(f"train: {time.perf_counter() - t0:.1f} s")
+        seconds["train"] = time.perf_counter() - t0
+        log(f"train: {seconds['train']:.1f} s")
         # The backward kernel's path is training; the forward's is serving
         # where the lm phase ran.
         for name, count in train.items():
             if launches.get(name) is None:
                 launches[name] = count
+    lm_mesh: Dict[str, List[int]] = {}
+    if "lm_mesh" in phases:
+        log(f"lm_mesh: {', '.join(LM_MESH_PARITY)} (train step, decode) and "
+            f"{', '.join(LM_MESH_SERVED)} (serve) sharded over a {LM_MESH_SHAPE} (data, model) "
+            f"mesh of {LM_MESH_RANKS} logical ranks of {dev}")
+        t0 = time.perf_counter()
+        lm_mesh = lm_mesh_phase(dev)
+        seconds["lm_mesh"] = time.perf_counter() - t0
+        log(f"lm_mesh: {seconds['lm_mesh']:.1f} s")
+        for name, per_rank in lm_mesh.items():
+            assert per_rank and all(n > 0 for n in per_rank), \
+                f"kernel {name} was not launched on every rank of the lm_mesh path: {per_rank}"
 
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]
@@ -3467,6 +4082,9 @@ def main() -> int:
         row["closed_loop_launches"] = closed_loop.get(row["name"].split("/")[0])
         row["mesh_launches"] = mesh.get(row["name"].split("/")[0])
         row["train_launches"] = train.get(row["name"].split("/")[0])
+        row["lm_mesh_launches"] = lm_mesh.get(row["name"].split("/")[0])
+    seconds["total"] = time.perf_counter() - t_start
+    log("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,14 @@ must be a multiple of it, as in the reference (``ValueError`` otherwise). KV cac
 hold ``max_len`` positions: a batch's padded prompt (with the VLM's
 ``frontend_tokens``) plus its new tokens should fit, as the cache's write
 position is clamped to its last slot, as in the reference.
+
+``use_mesh="single"`` (or ``"multi"``) serves on the reference's production
+mesh (``launch.mesh.make_production_mesh``, ``make_ctx(remat="none")``):
+every rank of the initialised process group calls ``serve`` alike, holds
+its shard of the weights (cut from each leaf as it is drawn, so the full
+tree is never held; gathered over the FSDP axes once, as they do not
+change while serving) and its rows of the batch and caches, and gets every
+request's tokens back.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from torch import nn
 from repro_torch.configs.base import get_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.launch.mesh import make_ctx, make_production_mesh
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.sharding import gather_fsdp, init_local, shard_params
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
 
@@ -69,24 +79,27 @@ def serve(
     (``prefills``, ``decode_steps``, ``tokens``, ``wall_s``). Weights are
     random from ``seed`` unless ``params`` (already on ``device``) is given.
     The VLM's batches carry zero patches of ``[B, frontend_tokens, d]``, the
-    encoder-decoder's zero frames of ``[B, ENCDEC_FRAMES, d]``."""
-    if use_mesh:
-        raise NotImplementedError(
-            f"serve(use_mesh={use_mesh!r}): the port serves on one device; the "
-            f"sharded LM path is still to be ported (ROADMAP, Queue 1)"
-        )
+    encoder-decoder's zero frames of ``[B, ENCDEC_FRAMES, d]``. Under
+    ``use_mesh`` the given ``params`` are the full tree, sharded here."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)
-    pctx = ParallelCtx(mesh=None)
-    if params is None:
-        params = model.init(seed, device=dev, max_dec_len=max_len)
+    if use_mesh:
+        mesh = make_production_mesh(multi_pod=use_mesh == "multi", device_type=dev.type)
+        pctx = make_ctx(mesh, remat="none")
+    else:
+        pctx = ParallelCtx(mesh=None)
+    if params is None:  # under a mesh, this rank's slices, cut as each leaf is drawn
+        params = init_local(model, seed, cfg, pctx, device=dev, max_dec_len=max_len)
     else:
         where = {p.device for p in params.parameters()}
         if where != {dev}:
             raise ValueError(f"params live on {sorted(map(str, where))}, serving on {dev}")
+        params = shard_params(params, cfg, pctx)
+    if pctx.mesh is not None:
+        params = gather_fsdp(params, pctx)
     prefill = make_prefill_step(model, cfg, pctx, max_len=max_len)
     decode = make_decode_step(model, cfg, pctx)
 

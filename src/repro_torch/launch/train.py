@@ -11,8 +11,15 @@ preemption handling and a straggler watchdog.
 
 It trains every family on one device, the CUDA device unless ``--device
 cpu`` is given. The smoke config trains in fp32, the full one in its
-config's dtype, as in the reference. ``--mesh`` raises: the sharded path
-is still to be ported (ROADMAP, Queue 1).
+config's dtype, as in the reference.
+
+``use_mesh="single"`` (or ``"multi"``) trains on the reference's production
+mesh (``launch.mesh.make_production_mesh``, ``make_ctx(remat="full")``):
+every rank of the initialised process group calls ``run_training`` alike,
+holds its shard of the weights (cut from each leaf as it is drawn, so the
+full tree is never held) and of the optimizer state, and takes the global
+batch's rows it owns. Checkpoints under a mesh are not ported
+(``NotImplementedError`` with ``ckpt_dir``).
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.preemption import PreemptionHandler
 from repro_torch.ft.watchdog import StepWatchdog
+from repro_torch.launch.mesh import make_ctx, make_production_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.sharding import init_local
 from repro_torch.train.step import init_train_state, make_train_step
 
 
@@ -56,17 +65,19 @@ def run_training(
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint under
     ``ckpt_dir`` where there is one) on random weights from seed 0 and the
     synthetic data; returns the losses of the steps taken."""
-    if use_mesh:
-        raise NotImplementedError(
-            f"run_training(use_mesh={use_mesh!r}): the port trains on one device; "
-            f"the sharded LM path is still to be ported (ROADMAP, Queue 1)"
-        )
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, dtype="float32" if smoke else cfg.dtype)
-    pctx = ParallelCtx(mesh=None, remat="none")
+    if use_mesh:
+        if ckpt_dir:
+            raise NotImplementedError("run_training(use_mesh=..., ckpt_dir=...): checkpoints "
+                                      "under a mesh are not ported")
+        pctx = make_ctx(make_production_mesh(multi_pod=use_mesh == "multi",
+                                             device_type=dev.type), remat="full")
+    else:
+        pctx = ParallelCtx(mesh=None, remat="none")
 
     model = build_model(cfg)
     optimizer = adamw(cosine_warmup(peak_lr, steps // 20 + 1, steps))
@@ -74,9 +85,12 @@ def run_training(
         model, cfg, pctx, optimizer,
         microbatches=microbatches, compress_grads=compress_grads,
     )
+    params = None
+    if pctx.mesh is not None:  # this rank's slices, cut as each leaf is drawn
+        params = init_local(model, 0, cfg, pctx, device=dev, max_dec_len=seq_len)
     state = init_train_state(
         model, cfg, optimizer, 0, device=dev,
-        max_dec_len=seq_len, compress_grads=compress_grads,
+        max_dec_len=seq_len, compress_grads=compress_grads, params=params,
     )
 
     mgr = CheckpointManager(ckpt_dir, save_every=save_every) if ckpt_dir else None

@@ -29,11 +29,12 @@ from repro_torch.models.layers.attention import (
     init_attention,
     make_kv_cache,
 )
-from repro_torch.models.layers.embedding import Embedding, init_embedding, logits_out
+from repro_torch.models.layers.embedding import Embedding, init_embedding, logits_out, lookup
 from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.norms import LayerNorm, layer_norm
 from repro_torch.models.transformer import Caches, _dtype_of
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.sharding import Keep, keep_all, within
 
 Tensor = torch.Tensor
 
@@ -90,33 +91,40 @@ def _sinusoidal(length: int, d: int, *, device: torch.device | str = "cpu") -> T
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
-def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> EncoderLayer:
+def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+                    keep: Keep) -> EncoderLayer:
     d, dev = cfg.d_model, gen.device
-    attn = init_attention(gen, cfg, dtype)
-    mlp = init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype)
+    attn = init_attention(gen, cfg, dtype, within(keep, "attn."))
+    mlp = init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype, within(keep, "mlp."))
     return EncoderLayer(LayerNorm(d, device=dev), attn, LayerNorm(d, device=dev), mlp)
 
 
-def _init_dec_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> DecoderLayer:
+def _init_dec_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+                    keep: Keep) -> DecoderLayer:
     d, dev = cfg.d_model, gen.device
-    self_attn = init_attention(gen, cfg, dtype)
-    xattn = init_attention(gen, cfg, dtype)
-    mlp = init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype)
+    self_attn = init_attention(gen, cfg, dtype, within(keep, "self_attn."))
+    xattn = init_attention(gen, cfg, dtype, within(keep, "xattn."))
+    mlp = init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype, within(keep, "mlp."))
     return DecoderLayer(LayerNorm(d, device=dev), self_attn, LayerNorm(d, device=dev), xattn,
                         LayerNorm(d, device=dev), mlp)
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig, *, max_dec_len: int = 4096) -> EncDec:
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, *, max_dec_len: int = 4096,
+                keep: Keep = keep_all) -> EncDec:
     """Random weights drawn from ``gen`` on ``gen``'s device, in the
     config's dtype (LayerNorms in fp32, as in the reference); ``dec_pos``
-    holds ``max_dec_len`` positions."""
+    holds ``max_dec_len`` positions. Each drawn leaf is passed through
+    ``keep`` with its path in the tree."""
     dtype = _dtype_of(cfg)
     dev = gen.device
     d = cfg.d_model
-    enc_layers = [_init_enc_layer(gen, cfg, dtype) for _ in range(cfg.enc_layers)]
-    dec_layers = [_init_dec_layer(gen, cfg, dtype) for _ in range(cfg.dec_layers)]
-    emb = init_embedding(gen, cfg, dtype)
-    dec_pos = (torch.randn(max_dec_len, d, generator=gen, device=dev) * 0.01).to(dtype)
+    enc_layers = [_init_enc_layer(gen, cfg, dtype, within(keep, f"enc_layers.{i}."))
+                  for i in range(cfg.enc_layers)]
+    dec_layers = [_init_dec_layer(gen, cfg, dtype, within(keep, f"dec_layers.{i}."))
+                  for i in range(cfg.dec_layers)]
+    emb = init_embedding(gen, cfg, dtype, within(keep, "emb."))
+    dec_pos = keep("dec_pos",
+                   (torch.randn(max_dec_len, d, generator=gen, device=dev) * 0.01).to(dtype))
     return EncDec(emb, dec_pos, enc_layers, dec_layers, LayerNorm(d, device=dev),
                   LayerNorm(d, device=dev))
 
@@ -132,6 +140,8 @@ def _take_rows(table: Tensor, index: Tensor) -> Tensor:
 
 def encode(params: EncDec, frames: Tensor, cfg: ArchConfig, pctx: ParallelCtx) -> Tensor:
     """frames: [B, T_enc, D] precomputed frame embeddings (frontend stub)."""
+    if pctx.seq_tp:
+        raise NotImplementedError("seq_tp for the encdec family is not ported")
     b, t, d = frames.shape
     x = frames + _sinusoidal(t, d, device=frames.device).to(frames.dtype)
     x = pctx.shard(x, pctx.batch_axes, None, None)
@@ -160,10 +170,12 @@ def decode(
     tokens are embedded without the sqrt(d) scale, plus their rows of
     ``dec_pos`` (positions clamped into the table, as the reference's
     gather clamps them); the head is the tied embedding."""
+    if pctx.seq_tp:
+        raise NotImplementedError("seq_tp for the encdec family is not ported")
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params.emb.embed[tokens] + _take_rows(params.dec_pos, positions)
+    x = lookup(params.emb, tokens, cfg, pctx) + _take_rows(params.dec_pos, positions)
     x = pctx.shard(x, pctx.batch_axes, None, None)
 
     kv_in = caches["kv"] if caches is not None else None

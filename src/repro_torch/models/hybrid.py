@@ -11,6 +11,10 @@ super-blocks over stacked parameters; here the SSM layers are one
 i), and the shared block is one module called ``n_super`` times. Caches are
 ``{"kv": [KVCache] * n_super, "ssm": [SSMState] * (n_super·e),
 "tail_ssm": [SSMState] * tail}`` (no ``tail_ssm`` without a tail).
+
+Under a mesh the shared block's ``w_in`` is column-parallel: its output is
+gathered over ``model`` before the attention. ``seq_tp`` is not ported for
+this family (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
 from repro_torch.models.transformer import Caches, _dtype_of
-from repro_torch.parallel.ctx import ParallelCtx, remat_wrap
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ctx import ParallelCtx, remat_wrap, split_over_model
+from repro_torch.parallel.sharding import Keep, keep_all, within
 
 Tensor = torch.Tensor
 #: The shared block's MLP activation (the reference's, whatever the config says).
@@ -90,35 +96,45 @@ class HybridLM(nn.Module):
         self.final_ln = final_ln
 
 
-def _init_ssm_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> SSMLayer:
-    return SSMLayer(RMSNorm(cfg.d_model, device=gen.device), init_ssm(gen, cfg, dtype))
+def _init_ssm_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+                    keep: Keep) -> SSMLayer:
+    return SSMLayer(RMSNorm(cfg.d_model, device=gen.device),
+                    init_ssm(gen, cfg, dtype, within(keep, "ssm.")))
 
 
-def init_hybrid(gen: torch.Generator, cfg: ArchConfig) -> HybridLM:
+def init_hybrid(gen: torch.Generator, cfg: ArchConfig, keep: Keep = keep_all) -> HybridLM:
     """Random weights drawn from ``gen`` on ``gen``'s device, in the
-    config's dtype (norm scales in fp32, as in the reference)."""
+    config's dtype (norm scales in fp32, as in the reference); each drawn
+    leaf is passed through ``keep`` with its path in the tree."""
     dtype = _dtype_of(cfg)
     n_super, e, tail = _split(cfg)
     d = cfg.d_model
     dev = gen.device
-    ssm_layers = [_init_ssm_layer(gen, cfg, dtype) for _ in range(n_super * e)]
-    emb = init_embedding(gen, cfg, dtype)
+    ssm_layers = [_init_ssm_layer(gen, cfg, dtype, within(keep, f"ssm_layers.{i}."))
+                  for i in range(n_super * e)]
+    emb = init_embedding(gen, cfg, dtype, within(keep, "emb."))
     shared = SharedBlock(
         RMSNorm(2 * d, device=dev),
-        (torch.randn(2 * d, d, generator=gen, device=dev) / math.sqrt(2 * d)).to(dtype),
-        init_attention(gen, cfg, dtype),
+        keep("shared.w_in",
+             (torch.randn(2 * d, d, generator=gen, device=dev) / math.sqrt(2 * d)).to(dtype)),
+        init_attention(gen, cfg, dtype, within(keep, "shared.attn.")),
         RMSNorm(d, device=dev),
-        init_mlp(gen, d, cfg.d_ff, SHARED_ACTIVATION, dtype),
+        init_mlp(gen, d, cfg.d_ff, SHARED_ACTIVATION, dtype, within(keep, "shared.mlp.")),
     )
-    tail_layers = [_init_ssm_layer(gen, cfg, dtype) for _ in range(tail)]
+    tail_layers = [_init_ssm_layer(gen, cfg, dtype, within(keep, f"tail_layers.{i}."))
+                   for i in range(tail)]
     return HybridLM(emb, ssm_layers, shared, tail_layers, RMSNorm(d, device=dev))
 
 
 def _shared_block(shared: SharedBlock, x: Tensor, x0: Tensor, positions: Tensor,
                   cfg: ArchConfig, pctx: ParallelCtx, kv: Optional[KVCache],
                   cache_index: Optional[Tensor]) -> Tuple[Tensor, Optional[KVCache]]:
-    h = torch.cat([x, x0], dim=-1)
-    h = rms_norm(h, shared.ln_in, cfg.norm_eps) @ shared.w_in
+    h = rms_norm(torch.cat([x, x0], dim=-1), shared.ln_in, cfg.norm_eps)
+    if split_over_model(shared, "w_in", -1, pctx):  # column-parallel
+        h = C.all_gather(pctx.tp_enter(h) @ shared.w_in, pctx.model_group, -1,
+                         scatter_back=False)
+    else:
+        h = h @ shared.w_in
     h, new_kv = attention_apply(shared.attn, h, positions, cfg, pctx,
                                 cache=kv, cache_index=cache_index)
     x = x + h
@@ -145,6 +161,8 @@ def hybrid_forward(
     want_state: bool = False,
 ) -> Tuple[Tensor, Optional[Caches], Tensor]:
     """Returns (logits, new_caches, aux_loss); the aux loss is zero."""
+    if pctx.seq_tp:
+        raise NotImplementedError("seq_tp for the hybrid family is not ported")
     n_super, e, tail = _split(cfg)
     b = tokens.shape[0]
     x0 = embed_tokens(params.emb, tokens, cfg, pctx)

@@ -8,10 +8,19 @@ outputs are summed back per token. Tokens that overflow an expert's capacity
 are dropped (their residual passes through), the capacity-factor trade, and
 shared experts run as a dense gated-SiLU MLP beside the routed ones.
 
-The reference's mesh branch (expert parallelism under ``shard_map``, with the
-ZeRO-3 gather of the expert weights and its int8 variant
-``_int8_allgather``) is not ported: the port runs on one device, and
-``ParallelCtx(mesh=...)`` raises (ROADMAP, Queue 1, Sharding).
+Under a mesh the experts split over ``model`` (expert parallelism, the
+reference's ``shard_map`` branch): rank r runs the experts
+``[r·E/tp, (r+1)·E/tp)`` on its data shard's tokens, with the capacity of
+the LOCAL token count, and the model ranks' outputs are summed. The expert
+stacks arrive gathered over the FSDP axes
+(``repro_torch.parallel.sharding.gather_fsdp``, the int8 gather under
+``int8_moe_gather``). The router is computed alike on every model rank and
+its gates enter the per-expert work through Megatron's "f", so its
+gradient is whole; the aux loss's mean probabilities and counts are summed
+over the data ranks, so it is the global batch's. Without expert
+parallelism (``tp`` 1, or E not divisible by it) the data ranks' tokens
+are gathered and the experts run on the global batch, as the reference's
+single-program branch does.
 
 Two choices keep the reference's answers and the card's determinism:
 
@@ -35,12 +44,15 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
-from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ctx import ParallelCtx, split_over_model
+from repro_torch.parallel.sharding import Keep, keep_all, within
 
 Tensor = torch.Tensor
 
@@ -60,8 +72,10 @@ class MoE(nn.Module):
         self.shared = shared
 
 
-def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> MoE:
-    """Random weights drawn from ``gen``, on ``gen``'s device. The expert
+def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             keep: Keep = keep_all) -> MoE:
+    """Random weights drawn from ``gen``, on ``gen``'s device, each leaf
+    passed through ``keep`` as it is drawn. The expert
     stacks are drawn one expert at a time in fp32 and cast into place, so
     the fp32 transient is one expert's matrix, not the stack's (kimi-k2's
     ``w1`` drawn whole in fp32 would take 22.5 GB)."""
@@ -74,9 +88,12 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> MoE:
             out[i] = torch.randn(rows, cols, generator=gen, device=dev) / math.sqrt(rows)
         return out
 
-    router = torch.randn(d, e, generator=gen, device=dev) / math.sqrt(d)
-    w1, w3, w2 = stack(d, f), stack(d, f), stack(f, d)
-    shared = (init_mlp(gen, d, f * cfg.num_shared_experts, "silu_gated", dtype)
+    router = keep("router", torch.randn(d, e, generator=gen, device=dev) / math.sqrt(d))
+    w1 = keep("w1", stack(d, f))
+    w3 = keep("w3", stack(d, f))
+    w2 = keep("w2", stack(f, d))
+    shared = (init_mlp(gen, d, f * cfg.num_shared_experts, "silu_gated", dtype,
+                       within(keep, "shared."))
               if cfg.num_shared_experts else None)
     return MoE(router, w1, w3, w2, shared)
 
@@ -145,6 +162,8 @@ def route(router: Tensor, x: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
 def moe_apply(params: MoE, x: Tensor, cfg: ArchConfig,
               pctx: ParallelCtx) -> Tuple[Tensor, Tensor]:
     """Returns (y, aux_loss). x: [B, S, D]."""
+    x_res = x
+    x = pctx.seq_gather(x)
     b, s, d = x.shape
     dtype = x.dtype
     e = cfg.num_experts
@@ -152,19 +171,45 @@ def moe_apply(params: MoE, x: Tensor, cfg: ArchConfig,
 
     # Load-balancing aux loss (Switch-style): E · Σ_i mean_prob_i · frac_assigned_i.
     # The counts are integers, exact in fp32 whatever the order of the adds.
-    me = probs.reshape(-1, e).mean(dim=0)
     flat = ids.reshape(-1)
     counts = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=x.device))
+    if pctx.mesh is None:
+        me = probs.reshape(-1, e).mean(dim=0)
+    else:  # the global batch's: sums over the data ranks
+        data = pctx.group(pctx.batch_axes)
+        n_tok = C.all_reduce_(torch.full((), float(b * s), device=x.device), data)
+        me = C.reduce_from(probs.reshape(-1, e).sum(dim=0), data) / n_tok
+        counts = C.all_reduce_(counts, data)
     ce = counts / torch.clamp(counts.sum(), min=1.0)
     aux_loss = e * torch.sum(me * ce)
 
-    y = _expert_shard(
-        params.w1, params.w3, params.w2,
-        x.reshape(b * s, d), gates.to(dtype).reshape(b * s, -1), ids.reshape(b * s, -1),
-        cfg=cfg, e_start=0, capacity=_capacity(b * s, cfg),
-    ).reshape(b, s, d)
+    gates = gates.to(dtype)
+    if split_over_model(params, "w1", 0, pctx):
+        # Expert parallelism: this rank's experts on this data shard's tokens.
+        e_loc = params.w1.shape[0]
+        y = _expert_shard(
+            params.w1, params.w3, params.w2,
+            pctx.tp_enter(x).reshape(b * s, d), pctx.tp_enter(gates).reshape(b * s, -1),
+            ids.reshape(b * s, -1), cfg=cfg, e_start=pctx.model_rank * e_loc,
+            capacity=_capacity(b * s, cfg),
+        ).reshape(b, s, d)
+        y = pctx.tp_exit(y)
+    else:
+        data = pctx.group(pctx.batch_axes) if pctx.batch_split else None
+        xa = C.all_gather(x, data, 0)
+        ga = C.all_gather(gates, data, 0)
+        ia = C.gather_tensor(ids, data, 0)
+        ba = xa.shape[0]
+        y = _expert_shard(
+            params.w1, params.w3, params.w2,
+            xa.reshape(ba * s, d), ga.reshape(ba * s, -1), ia.reshape(ba * s, -1),
+            cfg=cfg, e_start=0, capacity=_capacity(ba * s, cfg),
+        ).reshape(ba, s, d)
+        if data is not None:  # this rank's rows (backward: zeros elsewhere)
+            y = y.chunk(dist.get_world_size(data), dim=0)[dist.get_rank(data)]
+        y = pctx.tp_exit(y, partial=False)
 
     if cfg.num_shared_experts:
-        y = y + mlp_apply(params.shared, x, "silu_gated", pctx)
+        y = y + mlp_apply(params.shared, x_res, "silu_gated", pctx)
     return y.to(dtype), aux_loss

@@ -5,15 +5,24 @@ The RMSNorm scale is stored zero-centred (the weight is ``1 + scale``); the
 LayerNorm keeps a scale (ones) and a bias (zeros). Both are fp32, and the
 statistics are taken in fp32 whatever the activation dtype, as in the
 reference.
+
+Where the normalised dim is split over a process group (Mamba-2's gated
+norm over d_inner, split over ``model`` under a mesh), the mean of squares
+is the group's sum of squares over the whole dim: without it the norm
+would be taken per shard.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel import collectives as C
 
 
 class RMSNorm(nn.Module):
@@ -27,10 +36,17 @@ class RMSNorm(nn.Module):
         )
 
 
-def rms_norm(x: torch.Tensor, params: RMSNorm, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, params: RMSNorm, eps: float = 1e-6, *,
+             group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """RMSNorm over the last dim; with ``group``, that dim is split over the
+    group and its mean of squares is taken over the whole."""
     dtype = x.dtype
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    if group is None:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:
+        n = x32.shape[-1] * dist.get_world_size(group)
+        var = C.all_reduce_both(x32.square().sum(dim=-1, keepdim=True), group) / n
     y = x32 * torch.rsqrt(var + eps)
     # "zero-centered" scale (gemma/qwen convention: weight stored as scale-1)
     return (y * (1.0 + params.scale.float())).to(dtype)
@@ -60,7 +76,8 @@ def layer_norm(x: torch.Tensor, params: LayerNorm, eps: float = 1e-5) -> torch.T
 
 
 def gated_rms_norm(
-    x: torch.Tensor, z: torch.Tensor, params: RMSNorm, eps: float = 1e-5
+    x: torch.Tensor, z: torch.Tensor, params: RMSNorm, eps: float = 1e-5, *,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     y = x * F.silu(z.float()).to(x.dtype)
-    return rms_norm(y, params, eps)
+    return rms_norm(y, params, eps, group=group)

@@ -23,6 +23,15 @@ Shapes follow the Mamba2 reference: d_inner = expand·d_model, H heads of
 head_dim P, shared (ngroups=1) B/C of state size N. The projections stay
 separate (w_z/w_x/w_b/w_c/w_dt), as in the reference. Decode keeps a
 constant state — (conv_*, ssd) — per layer.
+
+Under a mesh the heads split over ``model``: ``w_z``, ``w_x``, ``w_dt``,
+the ``conv_x_*`` leaves, ``dt_bias``, ``a_log``, ``d_skip`` and the gated
+norm's scale hold this rank's H/tp heads, ``out_proj`` is row-parallel, and
+the SSD stages (the CUDA kernels on the card) run on those heads. The
+shared B/C projections and convolutions are computed alike on every rank
+and enter the per-head work through Megatron's "f", so their parameters
+get whole gradients; the gated norm takes its mean of squares over the
+whole d_inner (summed over ``model``).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.norms import RMSNorm, gated_rms_norm
-from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.ctx import ParallelCtx, split_over_model
+from repro_torch.parallel.sharding import Keep, keep_all
 
 Tensor = torch.Tensor
 Stage1 = Callable[[Tensor, Tensor, Tensor, Tensor], Tuple[Tensor, Tensor]]
@@ -76,8 +86,10 @@ def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
     return di, nh, cfg.ssm_head_dim, cfg.ssm_state
 
 
-def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> SSM:
-    """Random weights drawn from ``gen``, on ``gen``'s device."""
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             keep: Keep = keep_all) -> SSM:
+    """Random weights drawn from ``gen``, on ``gen``'s device, each leaf
+    but the norm's passed through ``keep`` as it is made."""
     d = cfg.d_model
     di, nh, p, n = _dims(cfg)
     dev = gen.device
@@ -91,22 +103,22 @@ def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> SSM:
 
     return SSM(
         RMSNorm(di, device=dev),
-        w_z=normal(d, di, scale=s),
-        w_x=normal(d, di, scale=s),
-        w_b=normal(d, n, scale=s),
-        w_c=normal(d, n, scale=s),
-        w_dt=normal(d, nh, scale=s),
-        conv_x_w=normal(cfg.ssm_conv, di, scale=0.2),
-        conv_x_b=zeros(di),
-        conv_b_w=normal(cfg.ssm_conv, n, scale=0.2),
-        conv_b_b=zeros(n),
-        conv_c_w=normal(cfg.ssm_conv, n, scale=0.2),
-        conv_c_b=zeros(n),
-        dt_bias=zeros(nh, torch.float32),
-        a_log=torch.log(torch.linspace(1.0, float(max(nh, 2)), nh,
-                                       dtype=torch.float32, device=dev)),
-        d_skip=torch.ones(nh, dtype=torch.float32, device=dev),
-        out_proj=normal(di, d, scale=1.0 / math.sqrt(di)),
+        w_z=keep("w_z", normal(d, di, scale=s)),
+        w_x=keep("w_x", normal(d, di, scale=s)),
+        w_b=keep("w_b", normal(d, n, scale=s)),
+        w_c=keep("w_c", normal(d, n, scale=s)),
+        w_dt=keep("w_dt", normal(d, nh, scale=s)),
+        conv_x_w=keep("conv_x_w", normal(cfg.ssm_conv, di, scale=0.2)),
+        conv_x_b=keep("conv_x_b", zeros(di)),
+        conv_b_w=keep("conv_b_w", normal(cfg.ssm_conv, n, scale=0.2)),
+        conv_b_b=keep("conv_b_b", zeros(n)),
+        conv_c_w=keep("conv_c_w", normal(cfg.ssm_conv, n, scale=0.2)),
+        conv_c_b=keep("conv_c_b", zeros(n)),
+        dt_bias=keep("dt_bias", zeros(nh, torch.float32)),
+        a_log=keep("a_log", torch.log(torch.linspace(1.0, float(max(nh, 2)), nh,
+                                                     dtype=torch.float32, device=dev))),
+        d_skip=keep("d_skip", torch.ones(nh, dtype=torch.float32, device=dev)),
+        out_proj=keep("out_proj", normal(di, d, scale=1.0 / math.sqrt(di))),
     )
 
 
@@ -274,15 +286,20 @@ def ssm_apply(
     # Imported here: the kernel package imports this module's plain stages.
     from repro_torch.kernels.ssd_stage1.ops import ssd_scan_kernel
 
+    x = pctx.seq_gather(x)
     bsz, s, d = x.shape
-    di, nh, p, n = _dims(cfg)
+    p = cfg.ssm_head_dim
     ba = pctx.batch_axes
+    split = split_over_model(params, "w_x", -1, pctx)
+    if split != split_over_model(params, "a_log", 0, pctx):
+        raise ValueError("d_inner and the SSM heads must both split over model, or neither")
+    xt = pctx.tp_enter(x) if split else x
 
-    z = pctx.shard(x @ params.w_z, ba, None, "model")
-    xs = pctx.shard(x @ params.w_x, ba, None, "model")
+    z = pctx.shard(xt @ params.w_z, ba, None, "model")
+    xs = pctx.shard(xt @ params.w_x, ba, None, "model")
     b_raw = x @ params.w_b
     c_raw = x @ params.w_c
-    dt_raw = x @ params.w_dt
+    dt_raw = xt @ params.w_dt
 
     st = state
     xs, conv_x_st = _causal_conv(xs, params.conv_x_w, params.conv_x_b,
@@ -292,9 +309,12 @@ def ssm_apply(
                                    st.conv_b if st is not None else None)
     c_in, conv_c_st = _causal_conv(c_raw, params.conv_c_w, params.conv_c_b,
                                    st.conv_c if st is not None else None)
+    if split:  # shared B/C entering the per-head work
+        b_in, c_in = pctx.tp_enter(b_in), pctx.tp_enter(c_in)
 
     dt = F.softplus(dt_raw.float() + params.dt_bias)
     a = -torch.exp(params.a_log)  # [H], negative
+    nh, di = a.shape[0], xs.shape[-1]  # this rank's heads
 
     xh = xs.reshape(bsz, s, nh, p)
     if s == 1 and state is not None:
@@ -316,10 +336,10 @@ def ssm_apply(
 
     y = y + xh.float() * params.d_skip[None, None, :, None]
     y = y.reshape(bsz, s, di).to(x.dtype)
-    y = gated_rms_norm(y, z, params.out_norm, cfg.norm_eps)
+    y = gated_rms_norm(y, z, params.out_norm, cfg.norm_eps,
+                       group=pctx.model_group if split else None)
     y = pctx.shard(y, ba, None, "model")
-    out = y @ params.out_proj
-    out = pctx.shard_residual(out)
+    out = pctx.tp_exit(y @ params.out_proj, partial=split)
 
     new_state = (
         SSMState(conv_x=conv_x_st, conv_b=conv_b_st, conv_c=conv_c_st,

@@ -12,12 +12,19 @@ layer (the reference stacks them as ``[n_groups, g, ...]`` leaves; see
 :mod:`repro_torch.models.convert`). The ``hybrid`` and ``encdec`` families
 have their own assemblies (:mod:`~repro_torch.models.hybrid`,
 :mod:`~repro_torch.models.encdec`).
+
+Under a mesh each rank runs this code on its local parameters and rows (the
+layers place the collectives). Under ``seq_tp`` the residual stream between
+the layers holds this rank's slice of the sequence (split after the
+embedding, gathered before the final norm; :func:`seq_tp_ctx` turns it off
+where the sequence does not divide ``tp``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,7 +47,9 @@ from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.moe import MoE, init_moe, moe_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
-from repro_torch.parallel.ctx import ParallelCtx, remat_wrap
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ctx import ParallelCtx, remat_wrap, split_over_model
+from repro_torch.parallel.sharding import Keep, keep_all, within
 
 Tensor = torch.Tensor
 Caches = Dict[str, Any]
@@ -112,19 +121,35 @@ class LM(nn.Module):
 
 
 # --------------------------------------------------------------- blocks -----
-def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Block:
-    """One block of the arch's family (attention + MLP or MoE, or SSM)."""
+def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+               keep: Keep = keep_all) -> Block:
+    """One block of the arch's family (attention + MLP or MoE, or SSM),
+    each drawn leaf passed through ``keep``."""
     _check_family(cfg, "init_block")
     dev = gen.device
     d = cfg.d_model
     if cfg.family == "ssm":
-        return Block(RMSNorm(d, device=dev), init_ssm(gen, cfg, dtype))
-    attn = init_attention(gen, cfg, dtype)
-    ffn = ({"moe": init_moe(gen, cfg, dtype)} if cfg.family == "moe"
-           else {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype)})
+        return Block(RMSNorm(d, device=dev), init_ssm(gen, cfg, dtype, within(keep, "ssm.")))
+    attn = init_attention(gen, cfg, dtype, within(keep, "attn."))
+    ffn = ({"moe": init_moe(gen, cfg, dtype, within(keep, "moe."))} if cfg.family == "moe"
+           else {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype,
+                                 within(keep, "mlp."))})
     post = ({"post_ln1": RMSNorm(d, device=dev), "post_ln2": RMSNorm(d, device=dev)}
             if cfg.post_block_norm else {})
     return Block(RMSNorm(d, device=dev), attn=attn, ln2=RMSNorm(d, device=dev), **ffn, **post)
+
+
+class _Scale(NamedTuple):
+    scale: Tensor
+
+
+def _res_norm(x: Tensor, norm: Optional[RMSNorm], cfg: ArchConfig, pctx: ParallelCtx) -> Tensor:
+    """An RMSNorm of the residual stream. Under ``seq_tp`` each model rank
+    normalises its slice of the sequence, so the scale (whole on every
+    rank) enters through "f" and its gradient sums over the slices."""
+    assert norm is not None
+    params = _Scale(pctx.tp_enter(norm.scale)) if pctx.seq_tp else norm
+    return rms_norm(x, params, cfg.norm_eps)  # type: ignore[arg-type]
 
 
 def block_apply(
@@ -146,27 +171,27 @@ def block_apply(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h, new_state = ssm_apply(
-            params.ssm, rms_norm(x, params.ln1, cfg.norm_eps), cfg, pctx,
+            params.ssm, _res_norm(x, params.ln1, cfg, pctx), cfg, pctx,
             state=ssm_state, return_state=want_state,
         )
         return x + h, None, new_state, aux
 
-    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    h = _res_norm(x, params.ln1, cfg, pctx)
     h, new_kv = attention_apply(
         params.attn, h, positions, cfg, pctx,
         window=window, cache=kv_cache, cache_index=cache_index,
     )
     if cfg.post_block_norm:
-        h = rms_norm(h, params.post_ln1, cfg.norm_eps)
+        h = _res_norm(h, params.post_ln1, cfg, pctx)
     x = x + h
 
-    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    h = _res_norm(x, params.ln2, cfg, pctx)
     if cfg.family == "moe":
         h, aux = moe_apply(params.moe, h, cfg, pctx)
     else:
         h = mlp_apply(params.mlp, h, cfg.activation, pctx)
     if cfg.post_block_norm:
-        h = rms_norm(h, params.post_ln2, cfg.norm_eps)
+        h = _res_norm(h, params.post_ln2, cfg, pctx)
     return x + h, new_kv, None, aux
 
 
@@ -181,10 +206,11 @@ def _windows(cfg: ArchConfig) -> Tuple[Optional[int], ...]:
     return (None,) if cfg.local_window is None else (cfg.local_window,)
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig) -> LM:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, keep: Keep = keep_all) -> LM:
     """Random weights drawn from ``gen`` on ``gen``'s device, in the
     config's dtype (norm scales, the SSM's dt_bias/a_log/d_skip and the MoE
-    router in fp32, as in the reference)."""
+    router in fp32, as in the reference); each drawn leaf is passed through
+    ``keep`` with its path in the tree."""
     _check_family(cfg, "init_lm")
     if cfg.num_layers % _group_size(cfg):
         raise ValueError(f"{cfg.num_layers} layers do not split into groups of "
@@ -192,11 +218,13 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> LM:
     dtype = _dtype_of(cfg)
     dev = gen.device
     d = cfg.d_model
-    layers = [init_block(gen, cfg, dtype) for _ in range(cfg.num_layers)]
-    emb = init_embedding(gen, cfg, dtype)
+    layers = [init_block(gen, cfg, dtype, within(keep, f"layers.{i}."))
+              for i in range(cfg.num_layers)]
+    emb = init_embedding(gen, cfg, dtype, within(keep, "emb."))
     connector = None
     if cfg.frontend_tokens and cfg.family == "vlm":
-        connector = (torch.randn(d, d, generator=gen, device=dev) / math.sqrt(d)).to(dtype)
+        connector = keep("connector",
+                         (torch.randn(d, d, generator=gen, device=dev) / math.sqrt(d)).to(dtype))
     return LM(emb, layers, RMSNorm(d, device=dev), connector)
 
 
@@ -240,6 +268,15 @@ def _stack_layers_apply(
     return x, (out or None), aux
 
 
+def seq_tp_ctx(pctx: ParallelCtx, seq: int) -> ParallelCtx:
+    """``pctx`` with ``seq_tp`` off where a sequence of ``seq`` positions
+    does not split over ``model`` (a decode step), as the reference's
+    residual constraint falls back to an unsplit sequence."""
+    if pctx.seq_tp and (pctx.tp == 1 or seq % pctx.tp or seq == 1):
+        return dataclasses.replace(pctx, seq_tp=False)
+    return pctx
+
+
 def lm_forward(
     params: LM,
     tokens: Tensor,
@@ -261,13 +298,17 @@ def lm_forward(
     x = embed_tokens(params.emb, tokens, cfg, pctx)
     if patch_embeds is not None:
         proj = patch_embeds.to(x.dtype) @ params.connector
+        if split_over_model(params, "connector", -1, pctx):  # column-parallel
+            proj = C.all_gather(proj, pctx.model_group, -1, scatter_back=False)
         x = torch.cat([proj, x], dim=1)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    x, new_caches, aux = _stack_layers_apply(params, x, positions, cfg, pctx, caches=caches,
-                                             cache_index=cache_index, want_state=want_state)
-    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    pctx = seq_tp_ctx(pctx, s)
+    x, new_caches, aux = _stack_layers_apply(params, pctx.seq_split(x), positions, cfg, pctx,
+                                             caches=caches, cache_index=cache_index,
+                                             want_state=want_state)
+    x = rms_norm(pctx.seq_gather(x), params.final_ln, cfg.norm_eps)
     return logits_out(params.emb, x, cfg, pctx), new_caches, aux
 
 

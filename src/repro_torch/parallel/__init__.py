@@ -1,4 +1,5 @@
-"""Parallel execution of the port: the LM's context (single device so far)
+"""Parallel execution of the port: the LM's context (one device, or a
+``DeviceMesh`` in explicit SPMD: ``ctx``, ``sharding``, ``collectives``)
 and the device lists the sharded tridiagonal solve runs on."""
 
 from repro_torch.parallel.ctx import ParallelCtx

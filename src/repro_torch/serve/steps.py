@@ -1,6 +1,8 @@
 """Serving step builders, the counterparts of ``repro.serve.steps``: prefill
 (prompt → primed caches) and decode (one token against the KV caches and
-SSM states)."""
+SSM states). Under a mesh each rank builds and keeps its own slice of the
+caches, as ``repro_torch.parallel.sharding.batch_spec`` says
+(``Model.make_caches``), and the steps take and return the global batch."""
 
 from __future__ import annotations
 

@@ -56,6 +56,12 @@ PORT_REGISTRY = Registry(
             names=("_LIBS",),
             guards=("_LOCK",),
         ),
+        # The LM mesh's process groups, made once per mesh on every rank.
+        GuardedGlobals(
+            module="repro_torch/parallel/ctx.py",
+            names=("_GROUPS", "_MESHES"),
+            guards=("_GROUPS_LOCK",),
+        ),
     ),
     guarded_attrs=(
         GuardedAttrs(
@@ -113,7 +119,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "repro_torch.telemetry, repro_torch.core.streams.measure, repro_torch.parallel, "
         "repro_torch.launch.train, repro_torch.train, repro_torch.optim, repro_torch.ckpt, "
         "repro_torch.data, repro_torch.ft, repro_torch.configs.shapes, "
-        "repro_torch.core.autotune.overlap\n"
+        "repro_torch.core.autotune.overlap, repro_torch.launch.mesh, "
+        "repro_torch.parallel.sharding, repro_torch.parallel.collectives\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -194,6 +201,17 @@ def test_port_registry_fires_on_an_unguarded_touch():
     assert [v.code for v in found] == ["TRD001"]
     for entry in PORT_REGISTRY.guarded_globals + PORT_REGISTRY.guarded_attrs:
         assert (REPO / "src" / entry.module).exists(), entry.module
+
+
+@pytest.mark.parametrize("name", ["_GROUPS", "_MESHES"])
+def test_port_registry_covers_the_mesh_groups(name):
+    found = check_source(
+        f"def peek():\n    return {name}\n",
+        "src/repro_torch/parallel/ctx.py",
+        registry=PORT_REGISTRY,
+        select=["TRD001"],
+    )
+    assert [v.code for v in found] == ["TRD001"]
 
 
 @pytest.mark.parametrize("name", ["_EXEC_CACHE", "_EXEC_STATS", "_EXEC_CACHE_CAPACITY",

@@ -150,7 +150,8 @@ def test_serve_raises_where_the_reference_raises():
     with pytest.raises(ValueError, match="seq 23 % chunk 16"):
         port_serve.serve(arch=ARCH, requests=_requests(port_serve.Request, bad, 0), seed=0,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The production mesh needs 256 ranks; this process is no rank of one.
+    with pytest.raises(RuntimeError, match="needs 256 ranks.*world size 1"):
         port_serve.serve(arch=ARCH, requests=[], use_mesh="single", device="cpu")
 
 

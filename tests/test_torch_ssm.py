@@ -225,7 +225,7 @@ def test_parallel_ctx_is_single_device():
     x = torch.ones(2, 3, 4)
     assert pctx.shard(x, pctx.batch_axes, None, "model") is x
     assert pctx.shard_residual(x) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ParallelCtx(mesh=object())
 
 

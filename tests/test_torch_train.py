@@ -349,7 +349,7 @@ def test_run_training_learns_and_resumes_step_for_step(arch, tmp_path, monkeypat
 
 
 def test_run_training_refuses_what_it_cannot_do():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks.*world size 1"):
         train_mod.run_training(**dict(RUN, steps=1), use_mesh="single")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
