@@ -199,6 +199,23 @@ Phases:
    memory, the greedy tokens agreeing with the unsharded serve (bf16:
    reported). Every rank's SSD launch counts: one forward a layer a
    prefill and a train step, one backward a layer a train step.
+10. ``roofline``: each count of ``repro_torch.roofline`` held against a
+   real step on the card. (a) At full size in bf16, no rematerialisation:
+   mamba2-1.3b's train step (AdamW) at 4 x 1024 tokens, 4 x 1024 prefill
+   and decode step at batch 4 (1024 cached positions), and qwen3-4b's
+   prefill and decode step at the same sizes (its KV cache's splice, the
+   embedding lookup), each counted (``count_step``: FLOPs, bytes moved,
+   peak live bytes, collectives) on CUDA tensors, with the SSD kernels
+   launching, and counted again on fake CUDA tensors by ``python -m
+   repro_torch.launch.dryrun --mesh one`` in a subprocess: the FLOPs, the
+   bytes and the peak equal, no collective. (b) The bound
+   max(FLOPs / 989.4 TFLOP/s, bytes / 3.35 TB/s) at or under the median
+   measured step (CUDA events, ``ROOFLINE_REPS`` steps after a warm-up, the
+   step made again from its seed), and the train step's tracked peak
+   within 15 % of ``torch.cuda.max_memory_allocated`` (less what was
+   allocated before its state was made). (c) The dry run of four cells through the probe
+   (``--probe``, fake 256- and 512-rank worlds), each subprocess started
+   with the phase: every status ``ok`` or ``skipped``.
 
 The two largest reduced-system rows of ``kernels`` (n = 1e6 fp64, n = 1e5
 fp32) hold the kernel against the fp64 host oracle ``thomas_numpy`` (the
@@ -246,7 +263,7 @@ PROFILE_ATTEMPTS = 5
 PROFILE_PAD = 64
 M = 10
 ALL_PHASES = ("build", "kernels", "main", "breakdown", "closed_loop", "mesh", "lm", "train",
-              "lm_mesh")
+              "lm_mesh", "roofline")
 # The kernels each path launches; its run must raise every one of their counts.
 MAIN_KERNELS = ("partition_stage1", "thomas", "partition_stage3", "partition_stage1_wide",
                 "thomas_wide", "partition_stage3_wide", "tridiag_matvec")
@@ -1276,11 +1293,11 @@ def ssd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
 
 def ssd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
     """Bytes (each input read once, each output written once) and
-    multiply-adds of SSD Stage 1 (the causal half of the scores and of y)."""
-    causal = q * (q + 1) // 2  # the (q, k <= q) pairs
-    macs = g * (causal * n + nh * causal * p + nh * q * p * n)
-    nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
-    return nbytes, macs
+    multiply-adds of SSD Stage 1: the kernel's one formula
+    (``ssd_stage1_cost``, which the roofline's counts charge too)."""
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_cost
+
+    return ssd_stage1_cost(g, q, nh, p, n)
 
 
 def ssd_bwd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
@@ -1294,14 +1311,11 @@ def ssd_bwd_inputs(dev: torch.device, g: int, q: int, nh: int, p: int, n: int,
 
 
 def ssd_bwd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[float, float]:
-    """Bytes (inputs u, dac, b, c, dy, ds read once, du, ddac, db, dc
-    written once) and multiply-adds of the backward: the causal half of the
-    scores, of dC and of dSᵀ·C (3 Q²N/2), of W and of the dy term of du
-    (2 H Q² P/2), and ds·B and uᵀ·ds (2 H Q P N)."""
-    causal = q * (q + 1) // 2
-    macs = g * (3 * causal * n + 2 * nh * causal * p + 2 * nh * q * p * n)
-    nbytes = 4 * g * (3 * q * nh * p + 2 * q * nh + 4 * q * n + nh * p * n)
-    return nbytes, macs
+    """Bytes and multiply-adds of the backward: its one formula
+    (``ssd_stage1_bwd_cost``)."""
+    from repro_torch.kernels.ssd_stage1.ops import ssd_stage1_bwd_cost
+
+    return ssd_stage1_bwd_cost(g, q, nh, p, n)
 
 
 def close_to_max(got: torch.Tensor, want: torch.Tensor, tol: float = SSD_BWD_TOL) -> None:
@@ -3964,6 +3978,165 @@ def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
     return launches
 
 
+# ----------------------------------------------------------------- roofline --
+# (a) and (b): the real steps at full size in bf16 without
+# rematerialisation, (arch, kind, the dry run's shape name, global batch,
+# sequence length): mamba2-1.3b (the SSD kernels) and qwen3-4b (the KV
+# cache's splice, the embedding lookup); ROOFLINE_REPS timed steps after
+# one warm-up.
+ROOFLINE_STEPS = (("mamba2-1.3b", "train", "train_4k", 4, 1024),
+                  ("mamba2-1.3b", "prefill", "prefill_32k", 4, 1024),
+                  ("mamba2-1.3b", "decode", "decode_32k", 4, 1024),
+                  ("qwen3-4b", "prefill", "prefill_32k", 4, 1024),
+                  ("qwen3-4b", "decode", "decode_32k", 4, 1024))
+ROOFLINE_REPS = 3
+# The tracked peak of a train step against max_memory_allocated: within this share.
+ROOFLINE_MEMORY_TOL = 0.15
+# (c) The dry run's cells, each through the probe: (arch, shape, --mesh).
+ROOFLINE_CELLS = (("qwen3-4b", "train_4k", "single"), ("mamba2-1.3b", "decode_32k", "single"),
+                  ("moonshot-v1-16b-a3b", "train_4k", "multi"), ("zamba2-7b", "long_500k", "single"))
+ROOFLINE_SUBPROCESS_S = 600
+
+
+def dryrun_command(out: Path, *args: str) -> List[str]:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out), *args]
+
+
+def roofline_phase(dev: torch.device) -> Dict[str, int]:
+    """(a)-(c) of phase 10; returns the SSD launches of the real steps."""
+    import gc
+    import os
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import HW_H100, count_step
+
+    def prepared(arch: str, kind: str, shape_name: str, b: int, s: int) -> Any:
+        shape = ShapeSpec(shape_name, s, b, kind)
+        return D.prepare_cell(get_config(arch), shape, D.make_pctx(shape, None, remat="none"),
+                              dev, fake=False)
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    procs: Dict[str, Tuple[subprocess.Popen, Path]] = {}
+    launches: Dict[str, int] = {}
+    real: Dict[Tuple[str, str], Any] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for arch, kind, shape_name, b, s in ROOFLINE_STEPS:
+                out = Path(tmp) / f"fake_{arch}_{kind}.json"
+                procs[f"fake {arch} {kind}"] = (subprocess.Popen(
+                    dryrun_command(out, "--arch", arch, "--shape", shape_name,
+                                   "--batch", str(b), "--seq", str(s), "--mesh", "one",
+                                   "--remat", "none", "--device", "cuda"),
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+            for arch, shape_name, mesh in ROOFLINE_CELLS:
+                out = Path(tmp) / f"probe_{arch}_{shape_name}.json"
+                procs[f"dryrun {arch} {shape_name} {mesh}"] = (subprocess.Popen(
+                    dryrun_command(out, "--arch", arch, "--shape", shape_name, "--mesh", mesh,
+                                   "--probe", "--device", "cuda"),
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+
+            # (a) the real steps, counted, while the subprocesses count theirs;
+            # one step's state at a time on the card.
+            for arch, kind, shape_name, b, s in ROOFLINE_STEPS:
+                layers = get_config(arch).num_layers if arch == "mamba2-1.3b" else 0
+                free()
+                base = torch.cuda.memory_allocated(dev)
+                cell = prepared(arch, kind, shape_name, b, s)
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                for c in LAUNCH_COUNTERS.values():
+                    c.reset()
+                with count_step(cell.arguments) as counts:
+                    result = cell.run()
+                    torch.cuda.synchronize(dev)
+                del result, cell
+                measured_peak = torch.cuda.max_memory_allocated(dev) - base
+                rose = counts_of(TRAIN_KERNELS)
+                # The decode step's recurrence has no chunk: no SSD launch.
+                want = {"ssd_stage1": layers if kind != "decode" else 0,
+                        "ssd_stage1_bwd": layers if kind == "train" else 0}
+                assert rose == want, (arch, kind, rose, want)
+                for name, n in rose.items():
+                    launches[name] = launches.get(name, 0) + n
+                real[arch, kind] = counts
+                total, _, _ = counts.collectives.collective_bytes()
+                assert total == 0, (arch, kind, counts.collectives.collective_bytes())
+                log(f"  (a) {arch} {kind} {b}x{s} real, counted on {dev}: {counts.flops} FLOP "
+                    f"({', '.join(f'{k} {v}' for k, v in sorted(counts.flops_by_op.items()))}), "
+                    f"{counts.bytes} B moved, peak {counts.peak_bytes} B (arguments "
+                    f"{counts.argument_bytes} B; max_memory_allocated less the {base} B before "
+                    f"the state {measured_peak} B), collectives none; SSD launches {rose}")
+                if kind == "train":
+                    tol = abs(counts.peak_bytes - measured_peak) / measured_peak
+                    log(f"  (b) {arch} train peak: tracked {counts.peak_bytes / 1e9:.3f} GB, "
+                        f"max_memory_allocated {measured_peak / 1e9:.3f} GB: {tol:.2%} apart")
+                    assert tol <= ROOFLINE_MEMORY_TOL, (counts.peak_bytes, measured_peak)
+
+            results: Dict[str, Any] = {}
+            for label, (proc, out) in procs.items():
+                text, _ = proc.communicate(timeout=ROOFLINE_SUBPROCESS_S)
+                assert proc.returncode == 0, f"{label}: exit {proc.returncode}\n{text[-3000:]}"
+                results[label] = json.loads(out.read_text())
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    # (a) the fake counts: the same FLOPs, bytes and peak, no collective.
+    for arch, kind, shape_name, b, s in ROOFLINE_STEPS:
+        (rec,) = results[f"fake {arch} {kind}"].values()
+        assert rec["status"] == "ok", rec
+        counts = real[arch, kind]
+        r = rec["roofline"]
+        log(f"  (a) {arch} {kind} fake on {rec['device']} (dry run, one rank, in "
+            f"{rec['compile_s']} s): {int(r['flops_per_device'])} FLOP, "
+            f"{int(r['bytes_per_device'])} B moved (real {counts.bytes}), peak "
+            f"{rec['peak_bytes']} B (real {counts.peak_bytes}), collectives "
+            f"{r['collective_bytes_per_device']} B")
+        assert int(r["flops_per_device"]) == counts.flops, (arch, kind, r, counts.flops)
+        assert int(r["bytes_per_device"]) == counts.bytes, (arch, kind, r, counts.bytes)
+        assert rec["peak_bytes"] == counts.peak_bytes, (arch, kind, rec, counts.peak_bytes)
+        assert r["collective_bytes_per_device"] == 0, r
+
+    # (b) each bound against its measured step, the step made again from
+    # its seed on an idle host.
+    for arch, kind, shape_name, b, s in ROOFLINE_STEPS:
+        counts = real[arch, kind]
+        free()
+        cell = prepared(arch, kind, shape_name, b, s)
+        ms = cuda_ms(cell.run, reps=ROOFLINE_REPS, warmup=1)
+        del cell
+        t_c = counts.flops / HW_H100["peak_flops"] * 1e3
+        t_m = counts.bytes / HW_H100["hbm_bw"] * 1e3
+        bound_ms = max(t_c, t_m)
+        log(f"  (b) {arch} {kind} {b}x{s}: bound {bound_ms:.3f} ms (compute {t_c:.3f}, memory "
+            f"{t_m:.3f}) against {ms:.3f} ms measured (median of {ROOFLINE_REPS}, CUDA "
+            f"events): {bound_ms / ms:.1%} of it")
+        assert bound_ms <= ms, (arch, kind, bound_ms, ms)
+    free()
+
+    # (c) the dry run's cells.
+    for arch, shape_name, mesh in ROOFLINE_CELLS:
+        (rec,) = results[f"dryrun {arch} {shape_name} {mesh}"].values()
+        assert rec["status"] in ("ok", "skipped"), rec
+        extra = ""
+        if rec["status"] == "ok":
+            extra = (f": flops {rec['flops']} bytes {rec['bytes']} cbytes {rec['cbytes']} "
+                     f"(network {rec['cbytes_network']}, nvlink {rec['cbytes_nvlink']}); variant "
+                     f"rows {rec['variant_rows']}")
+        log(f"  (c) {arch} {shape_name} {mesh} through the probe: {rec['status']}{extra}")
+    return launches
+
+
 def get_vocab(arch: str) -> int:
     from repro_torch.configs.base import get_config
 
@@ -4075,6 +4248,16 @@ def main() -> int:
         for name, per_rank in lm_mesh.items():
             assert per_rank and all(n > 0 for n in per_rank), \
                 f"kernel {name} was not launched on every rank of the lm_mesh path: {per_rank}"
+    roofline: Dict[str, int] = {}
+    if "roofline" in phases:
+        log(f"roofline: repro_torch.roofline counts of {len(ROOFLINE_STEPS)} steps "
+            f"({', '.join(sorted({a for a, *_ in ROOFLINE_STEPS}))}) on the card against "
+            f"the dry run's fake ones, each bound against its measured step, and the dry run of "
+            f"{len(ROOFLINE_CELLS)} cells")
+        t0 = time.perf_counter()
+        roofline = roofline_phase(dev)
+        seconds["roofline"] = time.perf_counter() - t0
+        log(f"roofline: {seconds['roofline']:.1f} s; SSD launches {roofline}")
 
     for row in rows:
         row["launches"] = launches[row["name"].split("/")[0]]
@@ -4083,6 +4266,7 @@ def main() -> int:
         row["mesh_launches"] = mesh.get(row["name"].split("/")[0])
         row["train_launches"] = train.get(row["name"].split("/")[0])
         row["lm_mesh_launches"] = lm_mesh.get(row["name"].split("/")[0])
+        row["roofline_launches"] = roofline.get(row["name"].split("/")[0])
     seconds["total"] = time.perf_counter() - t_start
     log("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(f"card: {card_line()}")

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counting
 
 #: dtypes every kernel is instantiated for, with the C symbol suffix.
 KERNEL_DTYPES: Dict[torch.dtype, str] = {torch.float32: "f32", torch.float64: "f64"}
@@ -198,7 +199,10 @@ def call(
     """Call a kernel's C entry with ``args`` and a stream last; raise when the
     launch failed. Without ``stream`` it runs on the device's current stream
     with the device made current; a caller that passes ``stream`` (a raw
-    ``cudaStream_t``) has done both, once for many launches."""
+    ``cudaStream_t``) has done both, once for many launches. Under a
+    ``repro_torch.roofline.counting`` count, a kernel without a FLOP and
+    byte formula raises before it launches."""
+    counting.check_launch(name)
     fn = build.entry(lib, symbol, argtypes)
     if stream is None:
         with torch.cuda.device(device):

@@ -24,6 +24,15 @@ behind :func:`ssd_stage1_backward_cuda`, whose plain version is
 CUDA tensors its forward and backward launch the kernels, on CPU tensors
 they run the plain versions.
 
+Each kernel runs inside a custom op (``repro_torch::ssd_stage1`` and
+``repro_torch::ssd_stage1_bwd``), which routes to the kernel on CUDA tensors
+and to the plain version on CPU tensors, and answers fake tensors with the
+outputs' shapes. Each op carries one FLOP formula (2 × the multiply-adds of
+:func:`ssd_stage1_cost` / :func:`ssd_stage1_bwd_cost`, the work before the
+split's × 3) and one byte formula (each fp32 input read once, each output
+written once), charged by ``repro_torch.roofline.counting`` on every route
+alike: the plain version's einsums are not counted beside it.
+
 :func:`ssd_scan_kernel` is the counterpart of ``ssd_scan_pallas``: the same
 signature and semantics as the plain
 :func:`repro_torch.models.layers.ssm.ssd_scan`, with Stage 1 through
@@ -38,7 +47,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.models.layers.ssm import chunked_ssd, ssd_stage1, ssd_stage1_backward
+from repro_torch.models.layers.ssm import _work_dtype, chunked_ssd, ssd_stage1, ssd_stage1_backward
+from repro_torch.roofline import counting
 
 SSD_STAGE1_LAUNCHES = common.LaunchCounter("ssd_stage1")
 SSD_STAGE1_BWD_LAUNCHES = common.LaunchCounter("ssd_stage1_bwd")
@@ -84,13 +94,47 @@ def _check_kernel_operands(what: str, names: Tuple[str, ...], tensors: Tuple[Ten
         raise ValueError(f"{what}: chunk length {q} outside 1..{MAX_CHUNK}")
 
 
+def ssd_stage1_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[int, int]:
+    """Bytes (each fp32 input read once, each output written once) and
+    multiply-adds of SSD Stage 1 (the causal half of the scores and of y,
+    and the states)."""
+    causal = q * (q + 1) // 2  # the (q, k <= q) pairs
+    macs = g * (causal * n + nh * causal * p + nh * q * p * n)
+    nbytes = 4 * g * (2 * q * nh * p + q * nh + 2 * q * n + nh * p * n)
+    return nbytes, macs
+
+
+def ssd_stage1_bwd_cost(g: int, q: int, nh: int, p: int, n: int) -> Tuple[int, int]:
+    """Bytes (inputs u, dac, b, c, dy, ds read once, du, ddac, db, dc
+    written once, fp32) and multiply-adds of the backward: the causal half
+    of the scores, of dC and of dSᵀ·C (3 Q²N/2), of W and of the dy term of
+    du (2 H Q² P/2), and ds·B and uᵀ·ds (2 H Q P N)."""
+    causal = q * (q + 1) // 2
+    macs = g * (3 * causal * n + 2 * nh * causal * p + 2 * nh * q * p * n)
+    nbytes = 4 * g * (3 * q * nh * p + 2 * q * nh + 4 * q * n + nh * p * n)
+    return nbytes, macs
+
+
+def _dims(u_shape: Any, b_shape: Any) -> Tuple[int, int, int, int, int]:
+    g, q, nh, p = u_shape
+    return g, q, nh, p, b_shape[-1]
+
+
 def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
     """u: [G, Q, H, P]; dac: [G, Q, H]; b/c: [G, Q, N], all fp32 on the card.
     Returns (y_diag [G, Q, H, P], states [G, H, P, N])."""
-    names = ("u", "dac", "b", "c")
-    _check_shapes("ssd_stage1", names, (u, dac, b, c))
+    _check_shapes("ssd_stage1", ("u", "dac", "b", "c"), (u, dac, b, c))
+    return torch.ops.repro_torch.ssd_stage1(u, dac, b, c)
+
+
+@torch.library.custom_op("repro_torch::ssd_stage1", mutates_args=(),
+                         schema="(Tensor u, Tensor dac, Tensor b, Tensor c) -> (Tensor, Tensor)")
+def _ssd_stage1_op(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
     if not common.on_cuda(u, dac, b, c):
-        return ssd_stage1(u, dac, b, c)
+        # Contiguous, as the kernel's outputs are: the ops after it run the same.
+        y, s = ssd_stage1(u, dac, b, c)
+        return y.contiguous(), s.contiguous()
+    names = ("u", "dac", "b", "c")
     _check_kernel_operands("ssd_stage1", names, (u, dac, b, c))
     g, q, nh, p = u.shape
     n = b.shape[-1]
@@ -106,6 +150,19 @@ def ssd_stage1_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tenso
     return y, s
 
 
+@_ssd_stage1_op.register_fake
+def _ssd_stage1_fake(u: Tensor, dac: Tensor, b: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
+    g, q, nh, p, n = _dims(u.shape, b.shape)
+    wt = _work_dtype(u)
+    return u.new_empty((g, q, nh, p), dtype=wt), u.new_empty((g, nh, p, n), dtype=wt)
+
+
+counting.register_kernel(
+    "ssd_stage1", torch.ops.repro_torch.ssd_stage1,
+    flops=lambda u, dac, b, c: 2 * ssd_stage1_cost(*_dims(u, b))[1],
+    nbytes=lambda u, dac, b, c: ssd_stage1_cost(*_dims(u, b))[0])
+
+
 def _head_groups(nh: int, count: int) -> int:
     """The number of groups when ``nh`` heads are cut into about ``count``
     groups of ceil(nh / count) heads each (the kernel's split, which gives
@@ -119,10 +176,21 @@ def ssd_stage1_backward_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: T
     """The gradient of SSD Stage 1: the forward's inputs and the incoming
     gradients dy [G, Q, H, P] and ds [G, H, P, N], all fp32 on the card.
     Returns (du, ddac, db, dc) of the inputs' shapes."""
-    names = ("u", "dac", "b", "c", "dy", "ds")
-    _check_shapes("ssd_stage1_backward", names, (u, dac, b, c, dy, ds))
+    _check_shapes("ssd_stage1_backward", ("u", "dac", "b", "c", "dy", "ds"),
+                  (u, dac, b, c, dy, ds))
+    return torch.ops.repro_torch.ssd_stage1_bwd(u, dac, b, c, dy, ds)
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_stage1_bwd", mutates_args=(),
+    schema="(Tensor u, Tensor dac, Tensor b, Tensor c, Tensor dy, Tensor ds)"
+           " -> (Tensor, Tensor, Tensor, Tensor)")
+def _ssd_stage1_bwd_op(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                       ds: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     if not common.on_cuda(u, dac, b, c, dy, ds):
-        return ssd_stage1_backward(u, dac, b, c, dy, ds)
+        du, ddac, db, dc = ssd_stage1_backward(u, dac, b, c, dy, ds)
+        return du.contiguous(), ddac.contiguous(), db.contiguous(), dc.contiguous()
+    names = ("u", "dac", "b", "c", "dy", "ds")
     _check_kernel_operands("ssd_stage1_backward", names, (u, dac, b, c, dy, ds))
     g, q, nh, p = u.shape
     n = b.shape[-1]
@@ -148,6 +216,19 @@ def ssd_stage1_backward_cuda(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: T
     )
     SSD_STAGE1_BWD_LAUNCHES.add()
     return du, ddac, db, dc
+
+
+@_ssd_stage1_bwd_op.register_fake
+def _ssd_stage1_bwd_fake(u: Tensor, dac: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                         ds: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    wt = _work_dtype(u)
+    return tuple(u.new_empty(t.shape, dtype=wt) for t in (u, dac, b, c))  # type: ignore[return-value]
+
+
+counting.register_kernel(
+    "ssd_stage1_bwd", torch.ops.repro_torch.ssd_stage1_bwd,
+    flops=lambda u, dac, b, c, dy, ds: 2 * ssd_stage1_bwd_cost(*_dims(u, b))[1],
+    nbytes=lambda u, dac, b, c, dy, ds: ssd_stage1_bwd_cost(*_dims(u, b))[0])
 
 
 class SSDStage1Function(torch.autograd.Function):

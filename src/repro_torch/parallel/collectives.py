@@ -31,12 +31,22 @@ an all-gather is ``all_gather`` into a list and one concatenation: one
 path on every device (gloo also has ``reduce_scatter_tensor`` and
 ``all_gather_into_tensor`` on CUDA tensors; they are not used). A
 group of one rank makes every primitive the identity.
+
+Every collective of the port goes through this module. While a tally is
+active (:func:`tallied`, used by ``repro_torch.roofline.counting``), each
+primitive reports its op name (the reference's HLO names: ``all-reduce``,
+``all-gather``, ``reduce-scatter``), its group and its payload, the larger
+of its operand and its result; the autograd primitives report through the
+plain ones their forward and backward call. :func:`measure_link`'s timed
+all-reduces measure the link and are not reported. With no tally active
+the cost is one check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -45,6 +55,26 @@ from repro_torch.core.autotune.overlap import tune_gradient_buckets
 
 Tensor = torch.Tensor
 Group = Optional[dist.ProcessGroup]
+
+#: The active tallies (``repro_torch.roofline.counting.CollectiveTally``),
+#: process-wide: a backward on the card runs in autograd's device thread.
+_TALLIES: List[Any] = []
+
+
+@contextlib.contextmanager
+def tallied(tally: Any) -> Iterator[Any]:
+    """Report every collective of the block to ``tally``
+    (``tally.add(op, group, payload_bytes)``)."""
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def _report(op: str, group: Group, payload: int) -> None:
+    for tally in list(_TALLIES):
+        tally.add(op, group, payload)
 
 
 # ------------------------------------------------------------- buckets -------
@@ -147,8 +177,11 @@ class BucketedAllReduce:
             by_dtype.setdefault(g.dtype, []).append((k, g))
         for items in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for _, g in items])
-            work = (dist.all_reduce(flat, group=self.group, async_op=True)
-                    if _size(self.group) > 1 else None)
+            work = None
+            if _size(self.group) > 1:
+                if _TALLIES:
+                    _report("all-reduce", self.group, _nbytes(flat))
+                work = dist.all_reduce(flat, group=self.group, async_op=True)
             self.pending.append(([k for k, _ in items], flat, work))
 
     def result(self) -> Dict[str, Tensor]:
@@ -175,6 +208,8 @@ def _size(group: Group) -> int:
 def all_reduce_(t: Tensor, group: Group, op: Any = dist.ReduceOp.SUM) -> Tensor:
     """In-place all-reduce (no autograd); the identity for one rank."""
     if _size(group) > 1:
+        if _TALLIES:
+            _report("all-reduce", group, _nbytes(t))
         dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -186,6 +221,8 @@ def gather_tensor(t: Tensor, group: Group, dim: int) -> Tensor:
     if n == 1:
         return t
     t = t.contiguous()
+    if _TALLIES:
+        _report("all-gather", group, n * _nbytes(t))
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
@@ -210,7 +247,11 @@ def scatter_sum(t: Tensor, group: Group, dim: int) -> Tensor:
     reduce-scatter; no autograd)."""
     if _size(group) == 1:
         return t
-    return slice_of(all_reduce_(t.contiguous().clone(), group), group, dim)
+    if _TALLIES:
+        _report("reduce-scatter", group, _nbytes(t))
+    full = t.contiguous().clone()
+    dist.all_reduce(full, group=group)
+    return slice_of(full, group, dim)
 
 
 # ------------------------------------------------------------- autograd -----
