@@ -67,6 +67,10 @@ Phases:
    and the interleaved answer against the system-major one. Staged:
    ``solve_timed`` at n = 1e7 with one CUDA stream per chunk, twice, bit
    for bit, and ``solve_batched_timed`` on the staged interleaved branch.
+   The deprecated frontends, each once with ``backend="cuda"``: the
+   chunked solver at n = 1e6, the batched one at 64 x 10,000, the ragged
+   one, ``solve_ragged`` and ``BatchedSolveService`` on three mixed sizes,
+   each the staged session's answer bit for bit, launching the kernels.
    Every result is checked against ``x_true``, and the n = 1e7 solve's
    residual max|A x - b| is taken with the matvec kernel; every solver
    kernel's launch counter must rise. The fused path caches a CUDA graph
@@ -197,8 +201,18 @@ Phases:
    size in bf16 through ``serve(use_mesh="single")``: 4 requests, 8 new
    tokens, finite logits, prefill and decode times, each rank's peak
    memory, the greedy tokens agreeing with the unsharded serve (bf16:
-   reported). Every rank's SSD launch counts: one forward a layer a
-   prefill and a train step, one backward a layer a train step.
+   reported). (c) zamba2-7b (6 layers: one super-block) and
+   whisper-medium (2 + 2 layers, 1500 frames) under ``sp_tp`` at full
+   width, fp32, at (a)'s gates; mamba2-1.3b's train step with EF-int8 on
+   the mesh against the unsharded EF step (the gathered error buffers and
+   the step; elements one quantum apart must lie within the gate of a
+   rounding boundary); ``run_training(use_mesh="single", ckpt_dir=...)``
+   of mamba2-1.3b (2 layers): unbroken, preempted on one rank and resumed
+   (the same losses), and its checkpoint carried to an unsharded run and
+   that run's back to the mesh, the files equal bit for bit.
+   Every rank's SSD launch counts: one forward a layer a prefill and a
+   train step (two under ``run_training``'s remat), one backward a layer
+   a train step.
 10. ``roofline``: each count of ``repro_torch.roofline`` held against a
    real step on the card. (a) At full size in bf16, no rematerialisation:
    mamba2-1.3b's train step (AdamW) at 4 x 1024 tokens, 4 x 1024 prefill
@@ -1598,6 +1612,7 @@ def main_phase(dev: torch.device) -> Dict[str, int]:
     interleaved_phase(cfg.replace(layout="auto"), timed, batched)
     staged_phase(cfg.replace(layout="auto"), big)
     functional_phase(batched)
+    deprecated_phase()
     hammer_phase(cfg)
     budget_phase(dev)
     log(f"  executable cache after the main path: {executable_cache_stats()}")
@@ -1836,6 +1851,73 @@ def functional_phase(batched: Tuple[np.ndarray, ...]) -> None:
         ms = cuda_ms(lambda: fn(ops), reps=5)
         log(f"  {label} 64x100000 fp64 (functional): launches={rose} device_operands_ms={ms:.4f} "
             f"max_err_vs_x_true={max_err(x, batched[4]):.3e}")
+
+
+def deprecated_phase() -> None:
+    """The deprecated frontends with ``backend="cuda"``, each once, against
+    the staged session they delegate to (bit for bit) and ``x_true`` (the
+    tolerance ladder): the chunked solver at n = 1e6, the batched one at
+    64 x 10,000, the ragged one, ``solve_ragged`` and the legacy service
+    (submit and flush) on three mixed sizes, and ``make_batched_solve_step``
+    against ``solve_batched``; every call launches the kernels."""
+    import warnings
+
+    from repro_torch.api import SolveRequest, SolverConfig, TridiagSession
+    from repro_torch.core.tridiag import (BatchedPartitionSolver, ChunkedPartitionSolver,
+                                          RaggedPartitionSolver, solve_ragged)
+    from repro_torch.core.tridiag.batched import solve_batched
+    from repro_torch.kernels.common import assert_allclose_by_dtype
+    from repro_torch.serve import BatchedSolveService, make_batched_solve_step
+
+    chunks = 4
+    one = system(1_000_000, 11, np.float64)
+    batch = system(10_000, 12, np.float64, batch=(64,))
+    sizes = (10_000, 40_000, 50_000)
+    mixed = [system(n, 13 + i, np.float64) for i, n in enumerate(sizes)]
+    staged = SolverConfig(m=M, backend="cuda", dispatch="staged", num_chunks=chunks)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        chunked = ChunkedPartitionSolver(m=M, num_chunks=chunks, backend="cuda")
+        batched = BatchedPartitionSolver(m=M, num_chunks=chunks, backend="cuda")
+        ragged = RaggedPartitionSolver(m=M, num_chunks=chunks, backend="cuda")
+        service = BatchedSolveService(m=M, default_chunks=chunks, backend="cuda")
+
+        def serve() -> List[np.ndarray]:
+            for i, sysm in enumerate(mixed):
+                service.submit(SolveRequest(i, *sysm[:4]))
+            done = service.flush()
+            return [done[i] for i in range(len(mixed))]
+
+        with TridiagSession(staged) as session:
+            want_many = session.solve_many([m_[:4] for m_ in mixed])
+            cases = (
+                ("ChunkedPartitionSolver n=1e6", lambda: chunked.solve(*one[:4]),
+                 session.solve(*one[:4]), one[4]),
+                ("BatchedPartitionSolver 64x10000", lambda: batched.solve(*batch[:4]),
+                 session.solve_batched(*batch[:4]), batch[4]),
+                (f"RaggedPartitionSolver {sizes}", lambda: ragged.solve([m_[:4] for m_ in mixed]),
+                 want_many, [m_[4] for m_ in mixed]),
+                (f"solve_ragged {sizes}", lambda: solve_ragged(
+                    [m_[:4] for m_ in mixed], m=M, num_chunks=chunks, backend="cuda"),
+                 want_many, [m_[4] for m_ in mixed]),
+                (f"BatchedSolveService {sizes} submit+flush",
+                 serve, want_many,
+                 [m_[4] for m_ in mixed]),
+            )
+            for label, run, want, truth in cases:
+                got, rose = launches_of(run)
+                assert same_bits(got, want), f"{label}: not the staged session's answer"
+                for g, t in (zip(got, truth) if isinstance(got, list) else ((got, truth),)):
+                    assert_allclose_by_dtype(g, t, np.float64)
+                assert rose.get("partition_stage1", 0) > 0 and rose.get("partition_stage3", 0) > 0, \
+                    (label, rose)
+                log(f"  deprecated {label}, backend='cuda': the staged session's answer bit for "
+                    f"bit, launches {rose}")
+    x, rose = launches_of(lambda: make_batched_solve_step(m=M)(*batch[:4]))
+    assert torch.equal(x, solve_batched(*batch[:4], m=M)) and rose, rose
+    assert_allclose_by_dtype(x, batch[4], np.float64)
+    log(f"  deprecated make_batched_solve_step 64x10000: solve_batched's answer bit for bit, "
+        f"launches {rose}")
 
 
 def hammer_phase(cfg: Any) -> None:
@@ -3279,10 +3361,11 @@ def patched_config(cfg: Any) -> Any:
     return ctx()
 
 
-def preempted_at(step: int) -> Any:
+def preempted_at(step: int, rank: Optional[int] = None) -> Any:
     """Within the block, ``run_training``'s data sends this process SIGTERM
-    when the pipeline stages ``step``: the launcher's preemption handler
-    stops the run at the next step boundary and saves a checkpoint."""
+    when the pipeline stages ``step`` (on the process group's ``rank``
+    alone, where given): the launcher's preemption handler stops the run at
+    the next step boundary and saves a checkpoint."""
     import contextlib
     import os
     import signal
@@ -3294,7 +3377,7 @@ def preempted_at(step: int) -> Any:
     @dataclasses.dataclass(frozen=True)
     class Preempting(base):  # type: ignore[misc, valid-type]
         def batch_at(self, s: int) -> Dict[str, np.ndarray]:
-            if s == step:
+            if s == step and (rank is None or torch.distributed.get_rank() == rank):
                 os.kill(os.getpid(), signal.SIGTERM)
             return base.batch_at(self, s)
 
@@ -3466,6 +3549,19 @@ LM_MESH_PG_TIMEOUT_S = 600
 # for bit, and its loss within 0.05 relative of the plain unsharded loss
 # (the reference's tolerance, tests/test_perf_variants.py).
 LM_MESH_LOSS_TOL, LM_MESH_GRAD_TOL, LM_MESH_LM_TOL, LM_MESH_INT8_TOL = 1e-4, 1e-3, 1e-3, 0.05
+# Part (c): zamba2-7b and whisper-medium under sp_tp at full width, fp32
+# (zamba2 cut to 6 layers, one super-block: 2 layers would hold no shared
+# block; the tail is held on the CPU; whisper to 2 + 2 layers, its 1500
+# frames),
+# each at part (a)'s gates; mamba2-1.3b (part (a)'s config) with EF-int8
+# on the mesh against the unsharded EF step; and run_training on the mesh
+# with checkpoints: LM_MESH_CKPT_STEPS steps unbroken, then preempted on
+# rank LM_MESH_PREEMPT_RANK alone and resumed (losses within
+# LM_MESH_RESUME_TOL relative), and checkpoints carried from the mesh to an
+# unsharded run and back, the files equal bit for bit.
+LM_MESH_SP_TP = (("zamba2-7b", 6), ("whisper-medium", 2))
+LM_MESH_CKPT_STEPS, LM_MESH_PREEMPT_AT, LM_MESH_PREEMPT_RANK = 5, 4, 1
+LM_MESH_RESUME_TOL = 1e-5
 
 
 def lm_mesh_cfg(arch: str) -> Any:
@@ -3502,19 +3598,25 @@ def lm_mesh_rank(rank: int, out_dir: str) -> None:
     out: Dict[str, Any] = {"parity": {}, "served": {}}
     for arch in LM_MESH_PARITY:
         out["parity"][arch] = lm_mesh_parity(rank, mesh, arch, dev)
+        release_pinned(dev)
     for arch in LM_MESH_SERVED:
         out["served"][arch] = lm_mesh_serve(rank, mesh, arch, dev)
+    release_pinned(dev)
+    out["part_c"] = lm_mesh_part_c(rank, mesh, dev, out_dir)
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
 
 def lm_mesh_greedy(model: Any, params: Any, tokens: torch.Tensor, pctx: Any,
-                   max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A prefill and LM_MESH_STEPS greedy decode steps: every step's last
-    logits (global batch, every vocab entry) and the tokens."""
+                   max_len: int, frames: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prefill (with the encoder-decoder's ``frames``) and LM_MESH_STEPS
+    greedy decode steps: every step's last logits (global batch, every
+    vocab entry) and the tokens."""
     b, s = tokens.shape
-    logits, caches = model.prefill(params, {"tokens": tokens}, pctx, max_len=max_len)
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+    logits, caches = model.prefill(params, batch, pctx, max_len=max_len)
     steps, toks = [logits[:, -1].float()], []
     nxt = torch.argmax(logits[:, -1:], dim=-1)
     for i in range(LM_MESH_STEPS):
@@ -3540,8 +3642,13 @@ def int8_qdq(w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(w.dtype)
 
 
-def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[str, Any]:
-    """Part (a) for one arch. Each rank draws the full weights from seed 0
+def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device,
+                   cfg: Any = None, sp_tp_only: bool = False) -> Dict[str, Any]:
+    """Part (a) for one arch (``cfg``: ``lm_mesh_cfg``'s unless given;
+    ``sp_tp_only``: part (c), the train step and decode under ``sp_tp``
+    alone, on the ``tp`` shard, whose specs are the same). The
+    encoder-decoder's batch and prompts carry frames (``frontend_tokens``
+    of them, from a seed). Each rank draws the full weights from seed 0
     (the same bits on one card; for moonshot two ranks at a time), keeps
     its shard for every variant, runs the unsharded train step on them and
     keeps its slice of the unsharded gradients (rank 0 also the unsharded
@@ -3564,12 +3671,14 @@ def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[s
     from repro_torch.parallel.sharding import gather_fsdp, shard_params, shard_tensor
     from repro_torch.train.step import apply_gradients, init_train_state, make_grad_fn
 
-    cfg = lm_mesh_cfg(arch)
+    cfg = lm_mesh_cfg(arch) if cfg is None else cfg
     model, opt = build_model(cfg), adamw(TRAIN_LR)
     data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=LM_MESH_SEQ,
                               global_batch=LM_MESH_BATCH).batch_at(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    batch.update(frames_of(cfg, LM_MESH_BATCH, cfg.frontend_tokens, 8, dev))
     prompts = batch["tokens"][:, :LM_MESH_PROMPT].contiguous()
+    frames = batch.get("frames")
     max_len = LM_MESH_PROMPT + LM_MESH_STEPS
     n_ssd = ssm_layers(cfg)
     res: Dict[str, Any] = {}
@@ -3580,7 +3689,9 @@ def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[s
             log(f"    [{arch}] {what}: {time.perf_counter() - t_arch:.1f} s")
 
     variants = {"tp": ("tp", {})}
-    if cfg.family == "moe":
+    if sp_tp_only:
+        variants["sp_tp"] = ("sp_tp", {})
+    elif cfg.family == "moe":
         variants["int8"] = ("tp", {"int8_moe_gather": True})
     if arch == "qwen3-4b":
         variants.update(sp_tp=("sp_tp", {}), dp_only=("dp_only", {}),
@@ -3656,12 +3767,14 @@ def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[s
                     local[label] = shard_params(full, cfg, pctx)
             if rank == 0:
                 with torch.inference_mode():
-                    decoded["4"] = lm_mesh_greedy(model, full, prompts, ParallelCtx(), max_len)
+                    decoded["4"] = lm_mesh_greedy(model, full, prompts, ParallelCtx(), max_len,
+                                                  frames)
                     decoded["1"] = lm_mesh_greedy(model, full, prompts[:1], ParallelCtx(),
-                                                  max_len)
+                                                  max_len, None if frames is None else frames[:1])
             full.requires_grad_(True)
             unsharded_step(full, list(local), "plain")
-            rounding_floor(full, list(local))
+            if not sp_tp_only:
+                rounding_floor(full, list(local))
             if "int8" in ctxs:
                 pctx8, specs = ctxs["int8"], local["tp"].shard_specs
                 with torch.no_grad():
@@ -3689,11 +3802,12 @@ def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[s
     def decode(label: str, key: str) -> None:
         pctx = ctxs[label]
         tokens = prompts if key == "4" else prompts[:1]
+        tframes = None if frames is None else frames[:tokens.shape[0]]
         zero()
         t0 = time.perf_counter()
         with torch.inference_mode():
             params = gather_fsdp(local[shard_of[label]], pctx)  # once, as serve does
-            logits, toks = lm_mesh_greedy(model, params, tokens, pctx, max_len)
+            logits, toks = lm_mesh_greedy(model, params, tokens, pctx, max_len, tframes)
             del params
         torch.cuda.synchronize()
         res[f"{label}_decode_s"] = time.perf_counter() - t0
@@ -3784,25 +3898,284 @@ def lm_mesh_parity(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[s
         res[f"{label}_grad_err"], res[f"{label}_param_err"] = worst_g, worst_p
         res[f"{label}_grad_leaf"], res[f"{label}_grad_floor"] = worst_leaf, worst_floor
 
-    decode("tp", "4")
-    train("tp")
-    if "int8" in ctxs:
-        with torch.no_grad():  # the gathered stacks against the formula, bit for bit
-            gathered = dict(gather_fsdp(local["tp"], ctxs["int8"]).named_parameters())
-            for k, w in want_deq.items():
-                assert torch.equal(gathered[k], w.to(dev)), (arch, "int8 gather", k)
-            del gathered
-        res["int8_deq_leaves"] = len(want_deq)
-        train("int8")
-    for label in ("sp_tp", "dp_only"):
-        if label in ctxs:
-            train(label)
-    if "seq_shard" in ctxs:
-        decode("seq_shard", "1")
+    if sp_tp_only:
+        decode("sp_tp", "4")
+        train("sp_tp")
+    else:
+        decode("tp", "4")
+        train("tp")
+        if "int8" in ctxs:
+            with torch.no_grad():  # the gathered stacks against the formula, bit for bit
+                gathered = dict(gather_fsdp(local["tp"], ctxs["int8"]).named_parameters())
+                for k, w in want_deq.items():
+                    assert torch.equal(gathered[k], w.to(dev)), (arch, "int8 gather", k)
+                del gathered
+            res["int8_deq_leaves"] = len(want_deq)
+            train("int8")
+        for label in ("sp_tp", "dp_only"):
+            if label in ctxs:
+                train(label)
+        if "seq_shard" in ctxs:
+            decode("seq_shard", "1")
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     local.clear()
     want.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def release_pinned(dev: torch.device) -> None:
+    """The pinned host blocks this process's allocator keeps cached, back
+    to the machine: the four ranks share the host's memory (96 GiB beside
+    one H100), and part (a)'s pinned copies kept about 20 GB cached on
+    each rank."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        if dev.type == "cuda" and hasattr(torch._C, name):
+            getattr(torch._C, name)()
+            return
+
+
+def host_memory() -> Dict[str, float]:
+    """GB from /proc: this process's resident set, and the machine's
+    available and shared memory (a tmpfs's files count as shared)."""
+    def field(path: str, name: str) -> float:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(name + ":"):
+                    return int(line.split()[1]) / 1e6  # kB
+        return float("nan")
+
+    return {"rss": field("/proc/self/status", "VmRSS"),
+            "available": field("/proc/meminfo", "MemAvailable"),
+            "shmem": field("/proc/meminfo", "Shmem")}
+
+
+def lm_mesh_part_c(rank: int, mesh: Any, dev: torch.device, out_dir: str) -> Dict[str, Any]:
+    """Part (c) on this rank: the sp_tp families, EF-int8 and checkpoints on
+    the mesh. Returns each check's numbers, its seconds and this rank's SSD
+    launches over the mesh's runs (rank 0's unsharded runs left out)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    def counts() -> Dict[str, int]:
+        return {n: LAUNCH_COUNTERS[n].count for n in TRAIN_KERNELS}
+
+    out: Dict[str, Any] = {"sp_tp": {}, "seconds": {}, "memory": {}}
+    launches = {n: 0 for n in TRAIN_KERNELS}
+
+    def memory(stage: str) -> None:
+        """Each rank's resident set after ``stage``; rank 0 prints it with
+        the machine's available and shared memory (the ranks share 96 GiB)."""
+        out["memory"][stage] = mem = host_memory()
+        if rank == 0:
+            log(f"    [part (c)] after {stage}: rank 0 resident {mem['rss']:.2f} GB, machine "
+                f"available {mem['available']:.2f} GB, shared {mem['shmem']:.2f} GB")
+
+    memory("parts (a) and (b)")
+    for arch, layers in LM_MESH_SP_TP:
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, layers, dtype="float32")
+        res = lm_mesh_parity(rank, mesh, arch, dev, cfg=cfg, sp_tp_only=True)
+        out["sp_tp"][arch] = res
+        for key in ("sp_tp_train_launches", "sp_tp_decode_launches"):
+            for n, c in res[key].items():
+                launches[n] += c
+        release_pinned(dev)
+        dist.barrier()
+        out["seconds"][f"sp_tp {arch}"] = time.perf_counter() - t0
+        memory(f"sp_tp {arch}")
+    t0 = time.perf_counter()
+    out["ef"] = lm_mesh_ef(rank, mesh, dev)
+    for n, c in out["ef"]["launches"].items():
+        launches[n] += c
+    dist.barrier()
+    out["seconds"]["ef"] = time.perf_counter() - t0
+    memory("ef")
+    t0 = time.perf_counter()
+    out["ckpt"] = lm_mesh_ckpt(rank, mesh, dev, Path(out_dir) / "ckpt", launches, counts, memory)
+    out["seconds"]["ckpt"] = time.perf_counter() - t0
+    out["launches"] = launches
+    return out
+
+
+def lm_mesh_ef(rank: int, mesh: Any, dev: torch.device) -> Dict[str, Any]:
+    """Part (c): one train step of mamba2-1.3b (part (a)'s config) with
+    ``compress_grads`` on the mesh against the unsharded EF step on the same
+    weights and batch (each rank runs it whole), from zero error buffers.
+    The gathered error buffers and parameters after the step are held
+    against the unsharded ones at part (a)'s gradient gate, each leaf
+    quantized with the scale of its whole stacked-leaf group. Quantization
+    is discontinuous: where the two gradients, which differ within the
+    gate, fall on either side of a rounding boundary, the dequantized
+    values differ by one quantum. Such an element must lie within the gate
+    of a boundary and move by one quantum; it is left out of the element
+    comparisons and counted."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, ef_int8_compressor
+    from repro_torch.optim.groups import grouped
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.sharding import gather_params, gather_tensor, shard_params
+    from repro_torch.train.step import (apply_gradients, init_train_state, make_grad_fn,
+                                        make_train_step)
+
+    cfg = lm_mesh_cfg("mamba2-1.3b")
+    model, opt = build_model(cfg), adamw(TRAIN_LR)
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=LM_MESH_SEQ,
+                              global_batch=LM_MESH_BATCH).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    pctx = make_ctx(mesh, remat="none")
+    full = model.init(0, device=dev)
+    local = shard_params(full, cfg, pctx)
+    specs = local.shard_specs
+    w0 = {k: p.detach().clone() for k, p in full.named_parameters()}
+    state = init_train_state(model, cfg, opt, 0, params=full, compress_grads=True)
+    _, _, grads = make_grad_fn(model, cfg, ParallelCtx())(state.params, batch)
+    grads = {k: g.detach().float() for k, g in grads.items()}
+    state, _ = apply_gradients(state, grads, opt, ef_int8_compressor()[1])
+    err_u = state.ef_state.error
+    del state
+    torch.cuda.synchronize()
+    before = {n: LAUNCH_COUNTERS[n].count for n in TRAIN_KERNELS}
+    t0 = time.perf_counter()
+    st = init_train_state(model, cfg, opt, 0, params=local, compress_grads=True)
+    st, metrics = make_train_step(model, cfg, pctx, opt, compress_grads=True)(st, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {n: LAUNCH_COUNTERS[n].count - before[n] for n in TRAIN_KERNELS}
+    assert launches == {"ssd_stage1": ssm_layers(cfg), "ssd_stage1_bwd": ssm_layers(cfg)}, launches
+    err_s = {k: gather_tensor(e, specs[k], pctx) for k, e in st.ef_state.error.items()}
+    after_s = dict(gather_params(st.params, cfg, pctx).named_parameters())
+    after_u = dict(full.named_parameters())
+    del st
+    worst_err = worst_step = 0.0
+    flips = total = 0
+    for members in grouped(grads).values():
+        scale = max(float(grads[k].abs().max()) for k in members) / 127.0
+        for k in members:
+            g = grads[k]
+            gmax = float(g.abs().max())
+            tol = LM_MESH_GRAD_TOL * gmax
+            q_u = torch.round((g - err_u[k]) / scale)
+            q_s = torch.round((g - err_s[k]) / scale)
+            flipped = q_s != q_u
+            if bool(flipped.any()):
+                assert bool(((q_s - q_u).abs()[flipped] == 1).all()), ("ef", k)
+                pos = g[flipped] / scale
+                frac = (pos - torch.floor(pos) - 0.5).abs()
+                assert float(frac.max()) <= tol / scale + 1e-6, ("ef", k, float(frac.max()))
+            kept = ~flipped
+            e = float((err_s[k] - err_u[k]).abs()[kept].max()) if bool(kept.any()) else 0.0
+            assert e <= tol or tol == 0.0, ("ef error buffer", k, e, tol)
+            worst_err = max(worst_err, e / gmax if gmax else 0.0)
+            p0 = w0[k].float()
+            step_u, step_s_ = after_u[k].detach().float() - p0, after_s[k].detach().float() - p0
+            big = torch.maximum(p0.abs(), torch.maximum(after_u[k].detach().float().abs(),
+                                                         after_s[k].detach().float().abs()))
+            ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+            resolved = kept & (g.abs() > 1e-2 * g.abs().max()) & (g.abs() > 1e3 * 1e-8)
+            smax = float(step_u.abs().max())
+            if bool(resolved.any()) and smax:
+                over = float(((step_s_ - step_u).abs() - ulp)[resolved].clamp(min=0).max())
+                assert over <= LM_MESH_GRAD_TOL * smax, ("ef step", k, over, smax)
+                worst_step = max(worst_step, over / smax)
+            flips += int(flipped.sum())
+            total += g.numel()
+    loss = float(metrics["loss"])
+    del full, w0, grads, err_u, err_s, after_s, after_u, local
+    torch.cuda.empty_cache()
+    return dict(loss=loss, step_s=step_s, err=worst_err, step=worst_step, flips=flips,
+                total=total, launches=launches)
+
+
+def lm_mesh_ckpt(rank: int, mesh: Any, dev: torch.device, root: Path,
+                 launches: Dict[str, int], counts: Callable[[], Dict[str, int]],
+                 memory: Callable[[str], None]) -> Dict[str, Any]:
+    """Part (c): ``run_training(use_mesh="single", ckpt_dir=...)`` of
+    mamba2-1.3b (part (a)'s config) with the production mesh replaced by
+    this one: (i) unbroken; (ii) preempted on one rank and resumed, the
+    losses the unbroken run's step for step; (iii) the mesh's final
+    checkpoint restored by an unsharded ``run_training`` on rank 0, which
+    takes no step and saves it again; (iv) that unsharded run's checkpoint
+    restored on the mesh, saved again the same way. (iii) and (iv) hold
+    each saved file against the one restored, every array bit for bit (its
+    dtype, shape and SHA-256): the gathered parameters, AdamW's moments
+    and the step. The runs take their checkpoint through hard links, not
+    copies. Adds the mesh runs' SSD launches to ``launches``."""
+    import hashlib
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    import repro_torch.launch.train as train_mod
+
+    cfg = lm_mesh_cfg("mamba2-1.3b")
+    train_mod.make_production_mesh = lambda **_: mesh  # type: ignore[assignment]
+    kw = dict(arch=cfg.arch_id, steps=LM_MESH_CKPT_STEPS, smoke=False, global_batch=LM_MESH_BATCH,
+              seq_len=LM_MESH_SEQ, device=dev, log_every=LM_MESH_CKPT_STEPS, save_every=10**6,
+              peak_lr=3e-4)
+    res: Dict[str, Any] = {}
+    last = f"step_{LM_MESH_CKPT_STEPS:08d}"
+
+    def on_mesh(**extra: Any) -> List[float]:
+        before = counts()
+        losses = train_mod.run_training(**kw, use_mesh="single", **extra)
+        for n, c in counts().items():
+            launches[n] += c - before[n]
+        return losses
+
+    def digests(d: Path) -> Dict[str, Tuple[str, Tuple[int, ...], str]]:
+        """Each array of a checkpoint by key: its dtype, shape and SHA-256."""
+        out = {}
+        with np.load(d / last / "arrays.npz") as z:
+            for k in z.files:
+                a = z[k]
+                out[k] = (str(a.dtype), a.shape, hashlib.sha256(a.tobytes()).hexdigest())
+        return out
+
+    def linked(src: Path, dst: Path) -> None:
+        shutil.copytree(src / last, dst / last, copy_function=os.link)
+
+    with patched_config(cfg):
+        t0 = time.perf_counter()
+        res["unbroken"] = on_mesh()
+        res["unbroken_s"] = time.perf_counter() - t0
+        memory("run_training unbroken")
+        t0 = time.perf_counter()
+        with preempted_at(LM_MESH_PREEMPT_AT, rank=LM_MESH_PREEMPT_RANK):
+            res["first"] = on_mesh(ckpt_dir=str(root / "mesh"))
+        res["second"] = on_mesh(ckpt_dir=str(root / "mesh"))
+        res["resumed_s"] = time.perf_counter() - t0
+        memory("run_training preempted and resumed")
+        if rank == 0:
+            res["saved"] = sorted(p.name for p in (root / "mesh").iterdir())
+            res["file_gb"] = (root / "mesh" / last / "arrays.npz").stat().st_size / 1e9
+            t0 = time.perf_counter()
+            want = digests(root / "mesh")
+            linked(root / "mesh", root / "plain")
+            assert train_mod.run_training(**kw, ckpt_dir=str(root / "plain")) == []
+            assert digests(root / "plain") == want, "the unsharded run's file differs"
+            linked(root / "plain", root / "to_mesh")
+            res["arrays"] = len(want)
+            res["plain_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        assert on_mesh(ckpt_dir=str(root / "to_mesh")) == []
+        res["to_mesh_s"] = time.perf_counter() - t0
+        memory("checkpoints to and from unsharded")
+        if rank == 0:
+            assert digests(root / "to_mesh") == want, "the mesh's file differs"
+            shutil.rmtree(root)
+    first, second, unbroken = res["first"], res["second"], res["unbroken"]
+    assert 0 < len(first) < len(unbroken) and len(first) + len(second) == len(unbroken), (
+        len(first), len(second), len(unbroken))
+    np.testing.assert_allclose(first + second, unbroken, rtol=LM_MESH_RESUME_TOL, atol=0)
+    res["resume_err"] = max(abs(a - b) / abs(b) for a, b in zip(first + second, unbroken))
     torch.cuda.empty_cache()
     return res
 
@@ -3889,9 +4262,10 @@ def lm_mesh_serve(rank: int, mesh: Any, arch: str, dev: torch.device) -> Dict[st
     return out
 
 
-def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
+def lm_mesh_phase(dev: torch.device) -> Dict[str, List[int]]:
     """The sharded LM path on four logical ranks of the card; returns the
-    SSD kernels' launches on each rank over part (a)'s driven runs."""
+    SSD kernels' launches on each rank over the driven runs of parts (a)
+    and (c)."""
     import os
     import tempfile
 
@@ -3916,7 +4290,8 @@ def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
     mp.spawn(lm_mesh_rank, args=(out_dir,), nprocs=LM_MESH_RANKS, join=True)
     ranks = [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
              for r in range(LM_MESH_RANKS)]
-    launches: Dict[str, List[Dict[str, int]]] = {"ssd_stage1": [], "ssd_stage1_bwd": []}
+    # each rank's SSD launches over the driven runs of parts (a) and (c)
+    launches = {n: [0] * LM_MESH_RANKS for n in TRAIN_KERNELS}
     for arch in LM_MESH_PARITY:
         r0 = ranks[0]["parity"][arch]
         cfg = lm_mesh_cfg(arch)
@@ -3952,12 +4327,12 @@ def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
                     f"{[r['parity'][arch][f'{label}_decode_launches'] for r in ranks]}")
         log(f"  (a) {arch}: peak memory per rank (GB) "
             f"{[round(r['parity'][arch]['peak_gb'], 3) for r in ranks]}")
-        for r in ranks:
+        for i, r in enumerate(ranks):
             got = r["parity"][arch]
             if ssm_layers(cfg):
-                launches["ssd_stage1"].append(got["tp_train_launches"]["ssd_stage1"]
+                launches["ssd_stage1"][i] += (got["tp_train_launches"]["ssd_stage1"]
                                               + got["tp_decode_launches"]["ssd_stage1"])
-                launches["ssd_stage1_bwd"].append(got["tp_train_launches"]["ssd_stage1_bwd"])
+                launches["ssd_stage1_bwd"][i] += got["tp_train_launches"]["ssd_stage1_bwd"]
     for arch in LM_MESH_SERVED:
         r0 = ranks[0]["served"][arch]
         ms, pms = r0["ms"], r0["plain_ms"]
@@ -3975,7 +4350,58 @@ def lm_mesh_phase(dev: torch.device) -> Dict[str, List[Dict[str, int]]]:
         assert all(r["served"][arch]["tokens"] == ranks[0]["served"][arch]["tokens"]
                    for r in ranks)
         assert all(0 <= t < get_vocab(arch) for q in r0["tokens"] for t in q)
+    part_c_summary(ranks)
+    for i, r in enumerate(ranks):
+        for n, c in r["part_c"]["launches"].items():
+            launches[n][i] += c
     return launches
+
+
+def part_c_summary(ranks: List[Dict[str, Any]]) -> None:
+    """Prints part (c)'s numbers (rank 0's, the worst over the ranks where
+    each rank measured its own)."""
+    c0 = ranks[0]["part_c"]
+    for arch, layers in LM_MESH_SP_TP:
+        r0 = c0["sp_tp"][arch]
+        per = [r["part_c"]["sp_tp"][arch] for r in ranks]
+        cfg = family_cfg(arch, layers, dtype="float32")
+        depth = f"{layers} + {layers}" if cfg.family == "encdec" else str(layers)
+        frames = f", {cfg.frontend_tokens} frames" if cfg.family == "encdec" else ""
+        leaf = max(per, key=lambda r: r["sp_tp_grad_err"])
+        floor_note = ("" if math.isnan(leaf["sp_tp_grad_floor"]) else
+                      f" (its rounding floor {leaf['sp_tp_grad_floor']:.3e})")
+        log(f"  (c) {arch} full width, {depth} layers, fp32, {LM_MESH_BATCH}x{LM_MESH_SEQ}"
+            f"{frames}, sp_tp: loss {r0['sp_tp_loss']:.7f} (rel {r0['sp_tp_loss_rel']:.2e} to "
+            f"unsharded), gradients {max(r['sp_tp_grad_err'] for r in per):.3e} of their "
+            f"largest magnitude (worst leaf {leaf['sp_tp_grad_leaf']}{floor_note}), AdamW step "
+            f"{max(r['sp_tp_param_err'] for r in per):.3e} of its largest; one step "
+            f"{r0['sp_tp_step_s']:.3f} s; decode: prefill {LM_MESH_PROMPT} + {LM_MESH_STEPS} "
+            f"steps, logits {r0['sp_tp_decode_err']:.3e} of their largest magnitude, same greedy "
+            f"tokens, {r0['sp_tp_decode_s']:.3f} s; launches per rank (train, decode) "
+            f"{[(r['sp_tp_train_launches'], r['sp_tp_decode_launches']) for r in per]}")
+    ef = [r["part_c"]["ef"] for r in ranks]
+    log(f"  (c) mamba2-1.3b EF-int8 on the mesh, {LM_MESH_LAYERS} layers, full width, fp32, "
+        f"{LM_MESH_BATCH}x{LM_MESH_SEQ}: loss {ef[0]['loss']:.7f}; against the unsharded EF "
+        f"step, gathered error buffers {max(e['err'] for e in ef):.3e} and AdamW step "
+        f"{max(e['step'] for e in ef):.3e} of their largest (gate {LM_MESH_GRAD_TOL}); elements "
+        f"quantized one quantum apart (within the gate of a rounding boundary) "
+        f"{ef[0]['flips']} of {ef[0]['total']}; one step {ef[0]['step_s']:.3f} s")
+    ck = c0["ckpt"]
+    log(f"  (c) run_training(use_mesh='single', ckpt_dir=...) mamba2-1.3b {LM_MESH_LAYERS} "
+        f"layers fp32 {LM_MESH_BATCH}x{LM_MESH_SEQ}: {len(ck['unbroken'])} steps in "
+        f"{ck['unbroken_s']:.1f} s, losses {['%.5f' % x for x in ck['unbroken']]}; preempted "
+        f"on rank {LM_MESH_PREEMPT_RANK} alone after {len(ck['first'])} steps, resumed for "
+        f"{len(ck['second'])} (checkpoints {ck['saved']}), in {ck['resumed_s']:.1f} s: largest "
+        f"loss difference {ck['resume_err']:.3e} relative (gate {LM_MESH_RESUME_TOL}); the "
+        f"mesh's checkpoint restored and saved again by an unsharded run, and that run's "
+        f"by the mesh: {ck['arrays']} arrays each ({ck['file_gb']:.3f} GB a file), equal bit "
+        f"for bit (unsharded restore and save {ck['plain_s']:.1f} s, mesh restore and save "
+        f"{ck['to_mesh_s']:.1f} s)")
+    log("  (c) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in c0["seconds"].items())
+        + f"; SSD launches per rank {[r['part_c']['launches'] for r in ranks]}")
+    log("  (c) host memory, resident GB per rank after each stage: " + "; ".join(
+        f"{stage} {[round(r['part_c']['memory'][stage]['rss'], 2) for r in ranks]}"
+        for stage in c0["memory"]))
 
 
 # ----------------------------------------------------------------- roofline --
@@ -4238,9 +4664,10 @@ def main() -> int:
                 launches[name] = count
     lm_mesh: Dict[str, List[int]] = {}
     if "lm_mesh" in phases:
-        log(f"lm_mesh: {', '.join(LM_MESH_PARITY)} (train step, decode) and "
-            f"{', '.join(LM_MESH_SERVED)} (serve) sharded over a {LM_MESH_SHAPE} (data, model) "
-            f"mesh of {LM_MESH_RANKS} logical ranks of {dev}")
+        log(f"lm_mesh: {', '.join(LM_MESH_PARITY)} (train step, decode), "
+            f"{', '.join(LM_MESH_SERVED)} (serve), {', '.join(a for a, _ in LM_MESH_SP_TP)} "
+            f"(sp_tp), mamba2-1.3b (EF-int8, run_training with checkpoints) sharded over a "
+            f"{LM_MESH_SHAPE} (data, model) mesh of {LM_MESH_RANKS} logical ranks of {dev}")
         t0 = time.perf_counter()
         lm_mesh = lm_mesh_phase(dev)
         seconds["lm_mesh"] = time.perf_counter() - t0

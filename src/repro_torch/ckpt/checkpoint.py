@@ -15,6 +15,15 @@ A tree is any nesting of dicts, tuples (``NamedTuple`` states included),
 tree: each tensor goes to ``device`` (default: the device of the target's
 tensor at that path) in the target's dtype, a module's parameters are
 copied into the target module in place, and ints come back as ints.
+
+Under a mesh (``pctx``) the file is the same: every tensor is stored whole
+(logical), so a checkpoint written on a mesh is the one an unsharded run
+writes, and either restores on any mesh ("a 512-chip job resumes on 256
+chips"). The tree's module carries its layout (``shard_params``'
+``shard_specs``), and every other leaf takes the spec of the parameter its
+path names (:func:`leaf_spec`). :func:`logical_leaves` gathers each leaf
+by its spec, a collective every rank joins; :func:`restore_checkpoint`
+reads the whole tensors on every rank and keeps each rank's slice.
 """
 
 from __future__ import annotations
@@ -24,13 +33,16 @@ import os
 import shutil
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.sharding import Spec, gather_tensor, layout_of, shard_tensor
 
 
 def flatten_with_names(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -63,6 +75,58 @@ def host_copy(leaf: Any) -> Any:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return int(leaf)
+
+
+def tree_layout(tree: Any) -> Optional[Dict[str, Spec]]:
+    """The specs of the sharded module in ``tree`` (``shard_params``' local
+    parameters), or ``None`` where it holds none."""
+    if isinstance(tree, nn.Module):
+        return layout_of(tree)
+    children = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, tuple) else ()
+    for child in children:
+        found = tree_layout(child)
+        if found is not None:
+            return found
+    return None
+
+
+def leaf_spec(path: str, specs: Mapping[str, Spec]) -> Optional[Spec]:
+    """The spec of the state leaf at ``path``: that of the parameter its path
+    names (``params/<name>``, AdamW's ``opt_state/m/<name>``, the EF
+    buffers' ``ef_state/error/<name>``, Adafactor's ``opt_state/<name>/v``),
+    less the dim a factored statistic reduces (Adafactor's ``vr``, the
+    last; ``vc``, the one before); ``None`` for a leaf of no parameter."""
+    parts = path.split("/")
+    for i, part in enumerate(parts):
+        if part in specs:
+            spec, rest = tuple(specs[part]), parts[i + 1:]
+            if rest == ["vr"]:
+                return spec[:-1]
+            if rest == ["vc"]:
+                return spec[:-2] + spec[-1:]
+            return spec
+    return None
+
+
+def logical_leaves(tree: Any, pctx: Optional[ParallelCtx] = None, *,
+                   keep: bool = True) -> Dict[str, Any]:
+    """Host copies of the leaves of ``tree`` by path, every tensor whole:
+    under a mesh each sharded leaf is gathered by its spec first, a
+    collective that every rank joins, leaf by leaf in the same order (on
+    host copies of the slices where the backend takes host tensors, so the
+    whole leaf never goes back to the device). ``keep=False``: join the
+    gathers and keep nothing (a rank that does not write)."""
+    specs = tree_layout(tree) if pctx is not None and pctx.mesh is not None else None
+    on_host = specs is not None and all(
+        C.takes_host_tensors(pctx.group(ax)) for ax in pctx.mesh.mesh_dim_names)  # type: ignore[union-attr]
+    out: Dict[str, Any] = {}
+    for k, v in flatten_with_names(tree).items():
+        spec = leaf_spec(k, specs) if specs is not None and isinstance(v, torch.Tensor) else None
+        if spec is not None:
+            v = gather_tensor(host_copy(v) if on_host else v.detach(), spec, pctx)
+        if keep:  # a host gather's result is a new host tensor already
+            out[k] = v if spec is not None and on_host else host_copy(v)
+    return out
 
 
 def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
@@ -130,10 +194,14 @@ def restore_checkpoint(
     *,
     step: Optional[int] = None,
     device: Optional[DeviceLike] = None,
+    pctx: Optional[ParallelCtx] = None,
 ) -> Tuple[Any, int]:
     """Restore into the structure of ``target_tree``; returns ``(tree,
-    step)``. Raises ``FileNotFoundError`` without a checkpoint and
-    ``KeyError`` when the checkpoint lacks a path of the target."""
+    step)``. Under a mesh (``pctx``) each tensor is cut to this rank's
+    slice by the spec of its leaf in the target (any mesh: the file holds
+    whole tensors). Raises ``FileNotFoundError`` without a checkpoint,
+    ``KeyError`` when the checkpoint lacks a path of the target and
+    ``ValueError`` when a slice's shape is not the target's."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -143,16 +211,38 @@ def restore_checkpoint(
     manifest = json.loads((path / "manifest.json").read_text())
     dtypes = manifest["dtypes"]
     with np.load(path / "arrays.npz") as zf:
-        arrays = {k: _from_numpy(zf[k], dtypes[k]) for k in zf.files}
-    missing = set(flatten_with_names(target_tree)) - set(arrays)
-    if missing:
-        raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-    dev = None if device is None else resolve_device(device)
+        # read leaf by leaf as the target is rebuilt: one whole tensor held
+        # at a time beside the target
+        missing = set(flatten_with_names(target_tree)) - set(zf.files)
+        if missing:
+            raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
+        return _rebuild(target_tree, lambda key: _from_numpy(zf[key], dtypes[key]), device,
+                        pctx), step
 
-    def place(saved: Any, like: Any) -> Any:
+
+def _rebuild(target_tree: Any, read: Callable[[str], Any], device: Optional[DeviceLike],
+             pctx: Optional[ParallelCtx]) -> Any:
+    """``target_tree`` rebuilt from ``read(key)``, the saved leaf at each
+    path (see :func:`restore_checkpoint`)."""
+    dev = None if device is None else resolve_device(device)
+    specs = tree_layout(target_tree) if pctx is not None and pctx.mesh is not None else None
+
+    def mine(key: str, like: torch.Tensor) -> torch.Tensor:
+        """The saved tensor at ``key``, or this rank's slice of it."""
+        saved = read(key)
+        spec = leaf_spec(key, specs) if specs is not None else None
+        if spec is not None:
+            # a copy: a view would keep the whole tensor alive
+            saved = shard_tensor(saved, spec, pctx).clone()  # type: ignore[arg-type]
+        if tuple(saved.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint {key}: shape {tuple(saved.shape)} where the target "
+                             f"holds {tuple(like.shape)}")
+        return saved
+
+    def place(key: str, like: Any) -> Any:
         if not isinstance(like, torch.Tensor):
-            return int(saved)
-        return saved.to(like.device if dev is None else dev, like.dtype)
+            return int(read(key))
+        return mine(key, like).to(like.device if dev is None else dev, like.dtype)
 
     def rebuild(tree: Any, prefix: str) -> Any:
         def join(k: object) -> str:
@@ -163,7 +253,7 @@ def restore_checkpoint(
         if isinstance(tree, nn.Module):
             with torch.no_grad():
                 for k, p in tree.named_parameters():
-                    p.copy_(arrays[join(k)])
+                    p.copy_(mine(join(k), p))
             if dev is not None:
                 tree.to(dev)
             return tree
@@ -173,6 +263,6 @@ def restore_checkpoint(
             names = getattr(tree, "_fields", None)
             items = [rebuild(v, join(k)) for k, v in zip(names or range(len(tree)), tree)]
             return type(tree)(*items) if names else tuple(items)
-        return place(arrays[prefix], tree)
+        return place(prefix, tree)
 
-    return rebuild(target_tree, ""), step
+    return rebuild(target_tree, "")

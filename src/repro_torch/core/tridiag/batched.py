@@ -10,17 +10,24 @@ spike in each first block, zero right coupling in each last block), and
 Stage 3's cross-block term there is ``v·s_{p-1}`` with ``v = 0``. So the
 batched solve runs the single-system pipeline on the fused ``(B·n,)``
 operands, and chunks may span system boundaries.
+
+``BatchedPartitionSolver`` survives as a deprecated wrapper over
+``repro_torch.api.TridiagSession(...).solve_batched(...)``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple, TypeVar
+import warnings
+from typing import TYPE_CHECKING, Any, List, Optional, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from repro_torch.core.tridiag import partition
 from repro_torch.device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:  # the plan module imports this one
+    from repro_torch.core.tridiag.plan import BackendLike, ChunkTiming
 
 Tensor = torch.Tensor
 ArrayT = TypeVar("ArrayT", np.ndarray, Tensor)
@@ -113,3 +120,42 @@ def fuse_systems(
 def split_systems(x: ArrayT, batch: int) -> ArrayT:
     """Inverse of :func:`fuse_systems` for the solution vector."""
     return x.reshape(*x.shape[:-1], batch, x.shape[-1] // batch)
+
+
+class BatchedPartitionSolver:
+    """Deprecated: use ``repro_torch.api.TridiagSession(...).solve_batched(...)``.
+
+    ``num_chunks`` slices the *fused* block axis (B·n/m blocks), so chunks
+    span system boundaries. Every call delegates to a session with
+    ``dispatch="staged"`` and ``backend`` (``"reference"``, the plain
+    PyTorch stages, by default; ``"cuda"``, the kernels; or a
+    :class:`~repro_torch.core.tridiag.plan.StageBackend`), on ``device``
+    (:func:`~repro_torch.core.tridiag.ragged._session_for`).
+    """
+
+    def __init__(self, m: int = 10, num_chunks: int = 1, *, backend: BackendLike = None,
+                 device: str = "cuda") -> None:
+        warnings.warn(
+            "BatchedPartitionSolver is deprecated: use repro_torch.api."
+            "TridiagSession(SolverConfig(m=..., num_chunks=..., backend=...))"
+            ".solve_batched(...)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.core.tridiag.ragged import _session_for  # imports this module
+
+        self.m = m
+        self.num_chunks = num_chunks
+        self._session = _session_for(m, num_chunks, None, backend, device)
+
+    def solve(self, dl: Any, d: Any, du: Any, b: Any) -> np.ndarray:
+        x, _ = self.solve_timed(dl, d, du, b)
+        return x
+
+    def solve_timed(self, dl: Any, d: Any, du: Any, b: Any) -> Tuple[np.ndarray, ChunkTiming]:
+        shape = np.shape(d)
+        if len(shape) != 2:
+            raise ValueError(f"expected (batch, n) operands, got shape {tuple(shape)}")
+        if shape[1] % self.m:
+            raise ValueError(f"system size {shape[1]} not divisible by m={self.m}")
+        return self._session.solve_batched_timed(dl, d, du, b)

@@ -11,16 +11,24 @@ system must be 1-D and equally long, and a malformed system is rejected with
 its batch index. (Silently fusing a short diagonal would shift every later
 system's rows and corrupt all their solutions, which is fatal when one bad
 request rides with innocent neighbours.)
+
+``RaggedPartitionSolver`` and ``solve_ragged`` survive as deprecated
+wrappers over ``repro_torch.api.TridiagSession(...).solve_many(systems)``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+import warnings
+from typing import TYPE_CHECKING, Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.tridiag.batched import ArrayT, as_tensor
+
+if TYPE_CHECKING:  # the plan module imports this one
+    from repro_torch.core.tridiag.api import TridiagSession
+    from repro_torch.core.tridiag.plan import BackendLike, ChunkPolicy, ChunkTiming, SolvePlan
 
 Tensor = torch.Tensor
 System = Tuple[Any, Any, Any, Any]
@@ -70,3 +78,77 @@ def split_ragged(x: ArrayT, sizes: Sequence[int]) -> List[ArrayT]:
     if x.shape[-1] != offsets[-1]:
         raise ValueError(f"solution has {x.shape[-1]} rows, sizes sum to {offsets[-1]}")
     return [x[..., lo:hi] for lo, hi in zip(offsets[:-1], offsets[1:])]
+
+
+def _session_for(m: int, num_chunks: int, policy: Optional[ChunkPolicy], backend: BackendLike,
+                 device: str) -> "TridiagSession":
+    """The session the deprecated constructors' arguments describe, with
+    ``dispatch="staged"`` (their contract is the staged numerics)."""
+    from repro_torch.core.tridiag.api import SolverConfig, TridiagSession
+
+    return TridiagSession(SolverConfig(
+        m=m, num_chunks=None if policy is not None else num_chunks, policy=policy,
+        backend=backend if backend is not None else "reference", dispatch="staged",
+        device=device))
+
+
+class RaggedPartitionSolver:
+    """Deprecated: use ``repro_torch.api.TridiagSession(...).solve_many(...)``.
+
+    ``policy`` (a :class:`~repro_torch.core.tridiag.plan.ChunkPolicy`)
+    prices each batch by its effective size at solve time; a fixed
+    ``num_chunks`` is the no-policy baseline. Chunks slice the fused block
+    axis, so they span system boundaries. Every call delegates to a session
+    (:func:`_session_for`) on ``device``.
+    """
+
+    def __init__(self, m: int = 10, num_chunks: int = 1, *,
+                 policy: Optional[ChunkPolicy] = None, backend: BackendLike = None,
+                 device: str = "cuda") -> None:
+        warnings.warn(
+            "RaggedPartitionSolver is deprecated: use repro_torch.api."
+            "TridiagSession(SolverConfig(m=..., policy=... or num_chunks=..., "
+            "backend=...)).solve_many(...)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if policy is not None and num_chunks != 1:
+            raise ValueError("pass num_chunks or policy, not both")
+        self.m = m
+        self.num_chunks = num_chunks
+        self.policy = policy
+        self._session = _session_for(m, num_chunks, policy, backend, device)
+
+    def plan_for(self, sizes: Sequence[int]) -> SolvePlan:
+        return self._session.plan_for(tuple(sizes))
+
+    def solve(self, systems: Sequence[System]) -> List[np.ndarray]:
+        xs, _ = self.solve_timed(systems)
+        return xs
+
+    def solve_timed(self, systems: Sequence[System]) -> Tuple[List[np.ndarray], ChunkTiming]:
+        return self._session.solve_many_timed(systems)
+
+
+def solve_ragged(
+    systems: Sequence[System],
+    *,
+    m: int = 10,
+    num_chunks: int = 1,
+    policy: Optional[ChunkPolicy] = None,
+    backend: BackendLike = None,
+    device: str = "cuda",
+) -> List[np.ndarray]:
+    """One-shot ragged fused solve; returns the per-system solutions.
+
+    Deprecated: use ``repro_torch.api.TridiagSession(...).solve_many(systems)``.
+    """
+    warnings.warn(
+        "solve_ragged is deprecated: use repro_torch.api.TridiagSession("
+        "SolverConfig(...)).solve_many(systems)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    if policy is not None and num_chunks != 1:
+        raise ValueError("pass num_chunks or policy, not both")
+    return _session_for(m, num_chunks, policy, backend, device).solve_many(systems)

@@ -18,8 +18,11 @@ mesh (``launch.mesh.make_production_mesh``, ``make_ctx(remat="full")``):
 every rank of the initialised process group calls ``run_training`` alike,
 holds its shard of the weights (cut from each leaf as it is drawn, so the
 full tree is never held) and of the optimizer state, and takes the global
-batch's rows it owns. Checkpoints under a mesh are not ported
-(``NotImplementedError`` with ``ckpt_dir``).
+batch's rows it owns. Its checkpoints hold the logical (unsharded) state,
+written by the mesh's first rank (``CheckpointManager(pctx=...)``), so a
+run resumes on any mesh or on none, and an unsharded checkpoint resumes on
+a mesh. A SIGTERM on any rank stops every rank at the same step boundary:
+the ranks agree on the flag (a MAX all-reduce) before each step.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.ft.watchdog import StepWatchdog
 from repro_torch.launch.mesh import make_ctx, make_production_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, cosine_warmup
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.sharding import init_local
 from repro_torch.train.step import init_train_state, make_train_step
@@ -71,9 +75,6 @@ def run_training(
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, dtype="float32" if smoke else cfg.dtype)
     if use_mesh:
-        if ckpt_dir:
-            raise NotImplementedError("run_training(use_mesh=..., ckpt_dir=...): checkpoints "
-                                      "under a mesh are not ported")
         pctx = make_ctx(make_production_mesh(multi_pod=use_mesh == "multi",
                                              device_type=dev.type), remat="full")
     else:
@@ -93,7 +94,7 @@ def run_training(
         max_dec_len=seq_len, compress_grads=compress_grads, params=params,
     )
 
-    mgr = CheckpointManager(ckpt_dir, save_every=save_every) if ckpt_dir else None
+    mgr = CheckpointManager(ckpt_dir, save_every=save_every, pctx=pctx) if ckpt_dir else None
     start_step = 0
     if mgr and mgr.latest_step() is not None:
         state, start_step = mgr.restore(state)
@@ -105,11 +106,13 @@ def run_training(
     pipe = PrefetchPipeline(data.batch_at, start_step=start_step, depth=2, device=dev)
     preempt = PreemptionHandler()
     watchdog = StepWatchdog(hang_timeout_s=600.0)
+    # every rank of the mesh (one process without one)
+    group = pctx.group(tuple(pctx.mesh.mesh_dim_names)) if pctx.mesh is not None else None
 
     losses: List[float] = []
     try:
         for step, batch in pipe:
-            if step >= steps or preempt.requested:
+            if step >= steps or C.any_rank(preempt.requested, group):
                 break
             t0 = time.perf_counter()
             state, metrics = train_step(state, batch)

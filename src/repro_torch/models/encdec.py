@@ -12,11 +12,18 @@ Decode caches are ``{"kv": [KVCache] * dec_layers, "enc_out": [B, T_enc,
 D]}``. The reference's docstring says the cross-attention K/V are "computed
 once at prefill", but its code projects them from ``enc_out`` again at
 every decode step; the port follows the code.
+
+Under ``seq_tp`` the encoder and the decoder each split their own length
+over ``model`` (:func:`~repro_torch.models.transformer.seq_tp_ctx`: whisper's
+1500 frames split over 2 ranks and not over 16): the residual stream holds
+this rank's slice, each LayerNorm of it takes its scale and bias through
+"f", and the encoder's output is gathered whole before ``enc_ln``, so the
+cross-attention reads K/V of the whole encoder sequence on every rank.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +39,7 @@ from repro_torch.models.layers.attention import (
 from repro_torch.models.layers.embedding import Embedding, init_embedding, logits_out, lookup
 from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.norms import LayerNorm, layer_norm
-from repro_torch.models.transformer import Caches, _dtype_of
+from repro_torch.models.transformer import Caches, _dtype_of, seq_tp_ctx
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.sharding import Keep, keep_all, within
 
@@ -138,21 +145,36 @@ def _take_rows(table: Tensor, index: Tensor) -> Tensor:
     return table[torch.where(index < 0, index + n, index).clamp(0, n - 1)]
 
 
+class _ScaleBias(NamedTuple):
+    scale: Tensor
+    bias: Tensor
+
+
+def _res_norm(x: Tensor, norm: LayerNorm, cfg: ArchConfig, pctx: ParallelCtx) -> Tensor:
+    """A LayerNorm of the residual stream. Under ``seq_tp`` each model rank
+    normalises its slice of the sequence, so the scale and the bias (whole
+    on every rank) enter through "f" and their gradients sum over the
+    slices."""
+    params = (_ScaleBias(pctx.tp_enter(norm.scale), pctx.tp_enter(norm.bias)) if pctx.seq_tp
+              else norm)
+    return layer_norm(x, params, cfg.norm_eps)  # type: ignore[arg-type]
+
+
 def encode(params: EncDec, frames: Tensor, cfg: ArchConfig, pctx: ParallelCtx) -> Tensor:
-    """frames: [B, T_enc, D] precomputed frame embeddings (frontend stub)."""
-    if pctx.seq_tp:
-        raise NotImplementedError("seq_tp for the encdec family is not ported")
+    """frames: [B, T_enc, D] precomputed frame embeddings (frontend stub).
+    Returns the whole encoder sequence on every model rank."""
     b, t, d = frames.shape
+    pctx = seq_tp_ctx(pctx, t)
     x = frames + _sinusoidal(t, d, device=frames.device).to(frames.dtype)
-    x = pctx.shard(x, pctx.batch_axes, None, None)
+    x = pctx.seq_split(pctx.shard(x, pctx.batch_axes, None, None))
     positions = torch.arange(t, device=frames.device).expand(b, t)
     for layer in params.enc_layers:
-        h = layer_norm(x, layer.ln1, cfg.norm_eps)
+        h = _res_norm(x, layer.ln1, cfg, pctx)
         h, _ = attention_apply(layer.attn, h, positions, cfg, pctx, causal=False)
         x = x + h
-        h = layer_norm(x, layer.ln2, cfg.norm_eps)
+        h = _res_norm(x, layer.ln2, cfg, pctx)
         x = x + mlp_apply(layer.mlp, h, cfg.activation, pctx)
-    return layer_norm(x, params.enc_ln, cfg.norm_eps)
+    return layer_norm(pctx.seq_gather(x), params.enc_ln, cfg.norm_eps)
 
 
 def decode(
@@ -170,32 +192,31 @@ def decode(
     tokens are embedded without the sqrt(d) scale, plus their rows of
     ``dec_pos`` (positions clamped into the table, as the reference's
     gather clamps them); the head is the tied embedding."""
-    if pctx.seq_tp:
-        raise NotImplementedError("seq_tp for the encdec family is not ported")
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    pctx = seq_tp_ctx(pctx, s)
     x = lookup(params.emb, tokens, cfg, pctx) + _take_rows(params.dec_pos, positions)
-    x = pctx.shard(x, pctx.batch_axes, None, None)
+    x = pctx.seq_split(pctx.shard(x, pctx.batch_axes, None, None))
 
     kv_in = caches["kv"] if caches is not None else None
     new_kvs: List[KVCache] = []
     for i, layer in enumerate(params.dec_layers):
-        h = layer_norm(x, layer.ln1, cfg.norm_eps)
+        h = _res_norm(x, layer.ln1, cfg, pctx)
         h, new_kv = attention_apply(
             layer.self_attn, h, positions, cfg, pctx,
             cache=kv_in[i] if kv_in is not None else None, cache_index=cache_index,
         )
         x = x + h
-        h = layer_norm(x, layer.ln_x, cfg.norm_eps)
+        h = _res_norm(x, layer.ln_x, cfg, pctx)
         h, _ = attention_apply(layer.xattn, h, positions, cfg, pctx,
                                causal=False, xattn_kv=(enc_out, enc_out))
         x = x + h
-        h = layer_norm(x, layer.ln2, cfg.norm_eps)
+        h = _res_norm(x, layer.ln2, cfg, pctx)
         x = x + mlp_apply(layer.mlp, h, cfg.activation, pctx)
         if new_kv is not None:
             new_kvs.append(new_kv)
-    x = layer_norm(x, params.dec_ln, cfg.norm_eps)
+    x = layer_norm(pctx.seq_gather(x), params.dec_ln, cfg.norm_eps)
     logits = logits_out(params.emb, x, cfg, pctx)
     return logits, ({"kv": new_kvs} if new_kvs else None)
 

@@ -13,8 +13,12 @@ i), and the shared block is one module called ``n_super`` times. Caches are
 "tail_ssm": [SSMState] * tail}`` (no ``tail_ssm`` without a tail).
 
 Under a mesh the shared block's ``w_in`` is column-parallel: its output is
-gathered over ``model`` before the attention. ``seq_tp`` is not ported for
-this family (``NotImplementedError``).
+gathered over ``model`` before the attention. Under ``seq_tp`` the residual
+stream and the embedding ``x0`` hold this rank's slice of the sequence, as
+in :func:`~repro_torch.models.transformer.lm_forward`; the shared block
+normalises ``[x; x0]`` on the slice and takes the sequence whole before
+``w_in`` (the "f" in front of a column-parallel product must see the same
+positions on every rank), then hands the attention its slice again.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from repro_torch.models.layers.embedding import (
 from repro_torch.models.layers.mlp import MLP, init_mlp, mlp_apply
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 from repro_torch.models.layers.ssm import SSM, SSMState, init_ssm, make_ssm_state, ssm_apply
-from repro_torch.models.transformer import Caches, _dtype_of
+from repro_torch.models.transformer import Caches, _dtype_of, _res_norm, seq_tp_ctx
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.ctx import ParallelCtx, remat_wrap, split_over_model
 from repro_torch.parallel.sharding import Keep, keep_all, within
@@ -129,22 +133,22 @@ def init_hybrid(gen: torch.Generator, cfg: ArchConfig, keep: Keep = keep_all) ->
 def _shared_block(shared: SharedBlock, x: Tensor, x0: Tensor, positions: Tensor,
                   cfg: ArchConfig, pctx: ParallelCtx, kv: Optional[KVCache],
                   cache_index: Optional[Tensor]) -> Tuple[Tensor, Optional[KVCache]]:
-    h = rms_norm(torch.cat([x, x0], dim=-1), shared.ln_in, cfg.norm_eps)
+    h = pctx.seq_gather(_res_norm(torch.cat([x, x0], dim=-1), shared.ln_in, cfg, pctx))
     if split_over_model(shared, "w_in", -1, pctx):  # column-parallel
         h = C.all_gather(pctx.tp_enter(h) @ shared.w_in, pctx.model_group, -1,
                          scatter_back=False)
     else:
         h = h @ shared.w_in
-    h, new_kv = attention_apply(shared.attn, h, positions, cfg, pctx,
+    h, new_kv = attention_apply(shared.attn, pctx.seq_split(h), positions, cfg, pctx,
                                 cache=kv, cache_index=cache_index)
     x = x + h
-    h = rms_norm(x, shared.ln_mlp, cfg.norm_eps)
+    h = _res_norm(x, shared.ln_mlp, cfg, pctx)
     return x + mlp_apply(shared.mlp, h, SHARED_ACTIVATION, pctx), new_kv
 
 
 def _ssm_layer(layer: SSMLayer, x: Tensor, cfg: ArchConfig, pctx: ParallelCtx,
                state: Optional[SSMState], want_state: bool) -> Tuple[Tensor, Optional[SSMState]]:
-    h, new_state = ssm_apply(layer.ssm, rms_norm(x, layer.ln, cfg.norm_eps), cfg, pctx,
+    h, new_state = ssm_apply(layer.ssm, _res_norm(x, layer.ln, cfg, pctx), cfg, pctx,
                              state=state, return_state=want_state)
     return x + h, new_state
 
@@ -161,14 +165,14 @@ def hybrid_forward(
     want_state: bool = False,
 ) -> Tuple[Tensor, Optional[Caches], Tensor]:
     """Returns (logits, new_caches, aux_loss); the aux loss is zero."""
-    if pctx.seq_tp:
-        raise NotImplementedError("seq_tp for the hybrid family is not ported")
     n_super, e, tail = _split(cfg)
     b = tokens.shape[0]
     x0 = embed_tokens(params.emb, tokens, cfg, pctx)
     s = x0.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x0.device).expand(b, s)
+    pctx = seq_tp_ctx(pctx, s)
+    x0 = pctx.seq_split(x0)
 
     kv_in = caches["kv"] if caches is not None else None
     ssm_in = caches["ssm"] if caches is not None else None
@@ -211,7 +215,7 @@ def hybrid_forward(
     if tail_states:
         new_caches["tail_ssm"] = tail_states
 
-    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    x = rms_norm(pctx.seq_gather(x), params.final_ln, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits_out(params.emb, x, cfg, pctx), (new_caches or None), aux
 

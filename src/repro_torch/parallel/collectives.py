@@ -214,6 +214,25 @@ def all_reduce_(t: Tensor, group: Group, op: Any = dist.ReduceOp.SUM) -> Tensor:
     return t
 
 
+def takes_host_tensors(group: Group) -> bool:
+    """Whether ``group``'s backend runs collectives on host tensors (gloo,
+    MPI; NCCL does not)."""
+    return _size(group) == 1 or any(b in str(dist.get_backend(group)) for b in ("gloo", "mpi"))
+
+
+def any_rank(flag: bool, group: Group) -> bool:
+    """Whether ``flag`` is set on any rank of ``group``: a MAX all-reduce of
+    one value (on the host where the group's backend takes host tensors),
+    for a decision every rank must take alike. ``flag`` itself for one
+    rank."""
+    if _size(group) == 1:
+        return bool(flag)
+    dev = (torch.device("cpu") if takes_host_tensors(group)
+           else torch.device("cuda", torch.cuda.current_device()))
+    return bool(all_reduce_(torch.tensor([int(flag)], device=dev), group,
+                            dist.ReduceOp.MAX).item())
+
+
 def gather_tensor(t: Tensor, group: Group, dim: int) -> Tensor:
     """The group's tensors concatenated along ``dim`` in group-rank order
     (no autograd)."""

@@ -23,7 +23,10 @@ step's backward, timed on the device (CUDA events; the host clock on the
 CPU, whose work is synchronous), and the link's rate and latency, measured
 by timed all-reduces on the step's first call. The first step has no
 backward time yet, and takes one bucket. The reported ``loss`` and
-``nll`` are the global batch's.
+``nll`` are the global batch's. With ``compress_grads`` the error-feedback
+int8 round trip is applied to the reduced gradients: each rank quantizes
+its slices with the scale of the whole leaf, and its error buffers are
+its slices (:mod:`repro_torch.optim.grad_compress`).
 """
 
 from __future__ import annotations
@@ -312,14 +315,15 @@ def make_train_step(
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Metrics]]:
     """``train_step(state, batch) -> (new state, metrics)``: ``loss``,
     ``grad_norm``, ``nll`` and ``aux``, as the reference names them."""
-    if compress_grads and pctx.mesh is not None:
-        raise NotImplementedError("compress_grads under a mesh is not ported")
     compute_grads = make_grad_fn(model, cfg, pctx, microbatches=microbatches,
                                  aux_coef=aux_coef)
-    ef_apply = ef_int8_compressor()[1] if compress_grads else None
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         loss, metrics, grads = compute_grads(state.params, batch)
+        # Under a mesh the scale of each leaf is taken over its whole
+        # logical gradient (the specs of this state's local parameters).
+        ef_apply = (ef_int8_compressor(pctx=pctx, specs=layout_of(state.params))[1]
+                    if compress_grads else None)
         new_state, gnorm = apply_gradients(state, grads, optimizer, ef_apply, pctx)
         return new_state, {"loss": loss, "grad_norm": gnorm, **metrics}
 

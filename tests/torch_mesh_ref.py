@@ -153,9 +153,20 @@ def decode_tokens(cfg: Any, seed: int = 5) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE["batch"], DECODE["prompt"])))
 
 
+def decode_frames(cfg: Any, seed: int = 6) -> Any:
+    """The encoder-decoder's prefill frames ([B, frontend_tokens, d], fp32);
+    ``None`` for the other families."""
+    if cfg.family != "encdec":
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (DECODE["batch"], cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+
+
 def reference_greedy(arch: str, changes: Dict[str, Any], ref_params: Any,
-                     tokens: torch.Tensor) -> Dict[str, np.ndarray]:
-    """The reference's unsharded prefill and greedy decode steps."""
+                     tokens: torch.Tensor, frames: Any = None) -> Dict[str, np.ndarray]:
+    """The reference's unsharded prefill (with ``frames`` for the
+    encoder-decoder) and greedy decode steps."""
     ref_cfg, _ = cfgs(arch, changes)
     model = RefModel(ref_cfg)
     b, s = tokens.shape
@@ -163,7 +174,10 @@ def reference_greedy(arch: str, changes: Dict[str, Any], ref_params: Any,
     prefill = jax.jit(lambda p, batch: model.prefill(p, batch, RefCtx(), max_len=max_len))
     decode = jax.jit(lambda p, c, batch: model.decode_step(p, c, batch, RefCtx()))
     jp = jax.tree.map(jnp.asarray, ref_params)
-    logits, caches = prefill(jp, {"tokens": jnp.asarray(tokens.numpy(), jnp.int32)})
+    batch = {"tokens": jnp.asarray(tokens.numpy(), jnp.int32)}
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames.numpy())
+    logits, caches = prefill(jp, batch)
     out, toks = [np.asarray(logits[:, -1])], []
     nxt = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     for i in range(steps):
@@ -184,22 +198,36 @@ def check_decode(sharded: Dict[str, Any], port: Dict[str, Any],
                                    rtol=REF_LM_TOL, atol=REF_LM_TOL)
 
 
-def run_family(tmp_path: Any, arch: str, *, decode: bool) -> None:
-    """One spawn: the sharded train step (and decode) of ``arch`` against
-    the port's unsharded path and the reference's unsharded functions."""
-    changes = NO_DROP.get(arch, {})
+def run_family(tmp_path: Any, arch: str, *, decode: bool, strategy: str = "tp",
+               changes: Dict[str, Any] | None = None) -> None:
+    """One spawn: the sharded train step (and decode) of ``arch`` under
+    ``strategy`` against the port's unsharded path and the reference's
+    unsharded functions; ``changes`` to the smoke config (default: the
+    capacity that drops nothing, for the MoE)."""
+    changes = NO_DROP.get(arch, {}) if changes is None else changes
     ref = reference(arch, _key(changes))
     port = port_unsharded(arch, changes, ref)
     tokens = decode_tokens(port["cfg"]) if decode else None
+    frames = decode_frames(port["cfg"]) if decode else None
     results = rig.run_ranks(tmp_path, rig.family_rank, arch, changes, port["named"],
-                            port["batch"], LR, tokens, DECODE["steps"], DECODE["max_len"])
+                            port["batch"], LR, tokens, DECODE["steps"], DECODE["max_len"],
+                            strategy, frames)
+    # The lengths the residual stream was split from: under sp_tp the train
+    # sequence, the prompt and the encoder's frames, each halved; else none.
+    split_from = {a for r in results for a, b in r["seq_splits"] if 2 * b == a}
+    want_split: set = set()
+    if strategy == "sp_tp":
+        want_split = {SHAPE["seq_len"]} | ({DECODE["prompt"]} if decode else set())
+        if "frames" in port["batch"]:
+            want_split |= {port["batch"]["frames"].shape[1]}
+    assert split_from == want_split, (split_from, want_split)
     for r in results:  # every rank returns the same global numbers
         assert r["loss"] == results[0]["loss"]
         check_train(r, port, ref)
     if decode:
         want = rig.greedy(port["model"], params_from_reference(ref["params"], port["cfg"],
                                                                 device="cpu"),
-                          tokens, ParallelCtx(), DECODE["steps"], DECODE["max_len"])
-        ref_dec = reference_greedy(arch, changes, ref["params"], tokens)
+                          tokens, ParallelCtx(), DECODE["steps"], DECODE["max_len"], frames)
+        ref_dec = reference_greedy(arch, changes, ref["params"], tokens, frames)
         for r in results:
             check_decode(r["decode"], want, ref_dec)

@@ -136,18 +136,37 @@ def train_rank(mesh: Any, arch: str, cfg_changes: Dict[str, Any], named: Dict[st
 
 def family_rank(mesh: Any, arch: str, cfg_changes: Dict[str, Any],
                 named: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], lr: float,
-                tokens: Any, steps: int, max_len: int) -> Dict[str, Any]:
-    """The sharded train step and, with ``tokens``, the sharded decode."""
-    out = train_rank(mesh, arch, cfg_changes, named, batch, lr)
-    if tokens is not None:
-        out["decode"] = decode_rank(mesh, arch, cfg_changes, named, tokens, steps, max_len)
+                tokens: Any, steps: int, max_len: int, strategy: str = "tp",
+                frames: Any = None) -> Dict[str, Any]:
+    """The sharded train step and, with ``tokens``, the sharded decode
+    (prefilled with ``frames`` for the encoder-decoder); also every
+    ``seq_split`` seen, as (length in, length out)."""
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    splits: List[Tuple[int, int]] = []
+    seq_split = ParallelCtx.seq_split
+
+    def probe(self: Any, x: torch.Tensor) -> torch.Tensor:
+        y = seq_split(self, x)
+        splits.append((int(x.shape[1]), int(y.shape[1])))
+        return y
+
+    ParallelCtx.seq_split = probe  # type: ignore[method-assign]
+    try:
+        out = train_rank(mesh, arch, cfg_changes, named, batch, lr, strategy)
+        if tokens is not None:
+            out["decode"] = decode_rank(mesh, arch, cfg_changes, named, tokens, steps, max_len,
+                                        strategy=strategy, frames=frames)
+    finally:
+        ParallelCtx.seq_split = seq_split  # type: ignore[method-assign]
+    out["seq_splits"] = splits
     return out
 
 
 def decode_rank(mesh: Any, arch: str, cfg_changes: Dict[str, Any],
                 named: Dict[str, torch.Tensor], tokens: torch.Tensor, steps: int,
                 max_len: int, ctx_changes: Dict[str, Any] = {},
-                strategy: str = "tp") -> Dict[str, Any]:
+                strategy: str = "tp", frames: Any = None) -> Dict[str, Any]:
     """A sharded prefill and ``steps`` greedy decode steps: every step's
     global logits and tokens."""
     from repro_torch.models.registry import Model
@@ -157,14 +176,16 @@ def decode_rank(mesh: Any, arch: str, cfg_changes: Dict[str, Any],
     pctx = _ctx(mesh, strategy, **ctx_changes)
     model = Model(cfg)
     local = shard_params(_full_params(cfg, named), cfg, pctx)
-    return greedy(model, local, tokens, pctx, steps, max_len)
+    return greedy(model, local, tokens, pctx, steps, max_len, frames)
 
 
 def greedy(model: Any, params: Any, tokens: torch.Tensor, pctx: Any, steps: int,
-           max_len: int) -> Dict[str, Any]:
-    """Prefill then ``steps`` greedy decode steps (logits and tokens)."""
+           max_len: int, frames: Any = None) -> Dict[str, Any]:
+    """Prefill (with the encoder-decoder's ``frames``) then ``steps`` greedy
+    decode steps (logits and tokens)."""
     b, s = tokens.shape
-    logits, caches = model.prefill(params, {"tokens": tokens}, pctx, max_len=max_len)
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+    logits, caches = model.prefill(params, batch, pctx, max_len=max_len)
     all_logits, toks = [logits[:, -1].clone()], []
     nxt = torch.argmax(logits[:, -1:], dim=-1)
     for i in range(steps):
@@ -392,3 +413,157 @@ def serve_rank(mesh: Any, arch: str, prompts: List[List[int]], max_new: int) -> 
     losses = train_mod.run_training(arch=arch, steps=2, global_batch=4, seq_len=32,
                                     use_mesh="single", device="cpu", log_every=1)
     return dict(out=[r.out for r in done], stats=stats, losses=losses)
+
+
+def ef_rank(mesh: Any, arch: str, named: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], lr: float, grads_seq: List[Dict[str, torch.Tensor]],
+            e0: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """EF-int8 under the mesh. (a) The compressor alone on this rank's slices
+    of the full gradients ``grads_seq`` (one call each, the error carried)
+    from the full error buffers ``e0``: the gathered dequantized gradients
+    and errors, and the first call's dequantized gradients with each rank's
+    own scale (no MAX over the ranks). (b) One ``make_train_step`` with
+    ``compress_grads`` from ``e0``: the global loss, the gathered error
+    buffers and parameters after."""
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw, ef_int8_compressor
+    from repro_torch.optim.grad_compress import EFState
+    from repro_torch.parallel.sharding import gather_params, gather_tensor, shard_params
+    from repro_torch.parallel.sharding import shard_tensor
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = _cfg(arch)
+    pctx = _ctx(mesh)
+    model, opt = Model(cfg), adamw(lr)
+    local = shard_params(_full_params(cfg, named), cfg, pctx)
+    specs = local.shard_specs
+
+    def cut(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: shard_tensor(v, specs[k], pctx).clone() for k, v in tree.items()}
+
+    def whole(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: gather_tensor(v, specs[k], pctx) for k, v in tree.items()}
+
+    _, apply = ef_int8_compressor(pctx=pctx, specs=specs)
+    state = EFState(error=cut(e0))
+    calls = []
+    for g in grads_seq:
+        deq, state = apply(cut(g), state)
+        calls.append((whole(deq), whole(state.error)))
+    own, _ = ef_int8_compressor()[1](cut(grads_seq[0]), EFState(error=cut(e0)))
+
+    st = init_train_state(model, cfg, opt, 0, params=local, compress_grads=True)
+    assert all(st.ef_state.error[k].shape == p.shape for k, p in local.named_parameters())
+    st = st._replace(ef_state=EFState(error=cut(e0)))
+    st, out = make_train_step(model, cfg, pctx, opt, compress_grads=True)(st, batch)
+    after = {k: p.detach() for k, p in gather_params(st.params, cfg, pctx).named_parameters()}
+    return dict(calls=calls, own=whole(own), loss=float(out["loss"]),
+                error=whole(st.ef_state.error), after=after)
+
+
+def ckpt_rank(mesh: Any, arch: str, named: Dict[str, torch.Tensor],
+              batch: Dict[str, torch.Tensor], lr: float, root: str) -> Dict[str, Any]:
+    """Checkpoints on the mesh, every case in one spawn: (a) a state after
+    one AdamW step with EF-int8, saved by ``CheckpointManager(pctx=...)``;
+    (b) ``root/plain`` (written unsharded by the parent) restored on this
+    mesh; (c) (a)'s checkpoint restored on a (4, 1) mesh; (d) Adafactor's
+    state after one step saved and restored on this mesh; (e) a save whose
+    write fails on the writing rank (``root/blocked`` is a file). Each
+    restored state comes back gathered (``logical_leaves``); (e) the
+    exception each rank raised at ``wait``."""
+    from repro_torch.ckpt.checkpoint import logical_leaves
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = _cfg(arch)
+    pctx = _ctx(mesh)
+    model, opt = Model(cfg), adamw(lr)
+    out: Dict[str, Any] = {}
+
+    def fresh(p: Any, optimizer: Any = opt) -> Any:
+        local = shard_params(_full_params(cfg, named), cfg, p)
+        return init_train_state(model, cfg, optimizer, 0, params=local, compress_grads=True)
+
+    st = fresh(pctx)
+    st, _ = make_train_step(model, cfg, pctx, opt, compress_grads=True)(st, batch)
+    mgr = CheckpointManager(Path(root) / "mesh", pctx=pctx)
+    assert mgr.maybe_save(st.step, st, force=True)
+    mgr.wait()
+    out["saved"] = logical_leaves(st, pctx)
+    out["writer"] = mgr.writer
+
+    restored, out["plain_step"] = CheckpointManager(Path(root) / "plain", pctx=pctx).restore(
+        fresh(pctx))
+    out["from_plain"] = logical_leaves(restored, pctx)
+
+    p41 = _ctx(make_debug_mesh(4, 1, device_type="cpu"))
+    mgr41 = CheckpointManager(Path(root) / "mesh", pctx=p41)
+    restored, out["mesh_step"] = mgr41.restore(fresh(p41))
+    out["on_4x1"] = logical_leaves(restored, p41)
+    out["latest_4x1"] = mgr41.latest_step()
+
+    local = shard_params(_full_params(cfg, named), cfg, pctx)
+    af = adafactor(lr, pctx=pctx, specs=local.shard_specs)
+    st = init_train_state(model, cfg, af, 0, params=local)
+    st, _ = make_train_step(model, cfg, pctx, af)(st, batch)
+    mgr_af = CheckpointManager(Path(root) / "adafactor", pctx=pctx, async_save=False)
+    mgr_af.maybe_save(st.step, st, force=True)
+    out["af_saved"] = logical_leaves(st, pctx)
+    local = shard_params(_full_params(cfg, named), cfg, pctx)
+    restored, _ = mgr_af.restore(init_train_state(model, cfg, af, 0, params=local))
+    out["af_local_equal"] = all(
+        torch.equal(a, b) for a, b in zip(_tensor_leaves(restored), _tensor_leaves(st)))
+
+    blocked = CheckpointManager(Path(root) / "blocked", pctx=pctx)
+    blocked.maybe_save(1, st, force=True)
+    try:
+        blocked.wait()
+        out["write_error"] = None
+    except Exception as e:  # every rank must raise here
+        out["write_error"] = type(e).__name__
+    dist.barrier()  # and then still meet the others
+    return out
+
+
+def _tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    from repro_torch.ckpt.checkpoint import flatten_with_names
+
+    return [v for v in flatten_with_names(tree).values() if isinstance(v, torch.Tensor)]
+
+
+def resume_rank(mesh: Any, arch: str, root: str, steps: int, preempt_at: int,
+                preempt_rank: int) -> Dict[str, Any]:
+    """``run_training(use_mesh="single")`` on this mesh: ``steps`` steps
+    unbroken; then with checkpoints under ``root``, SIGTERM sent to rank
+    ``preempt_rank`` alone when its data reaches step ``preempt_at``, and
+    resumed by a second call. The three runs' losses."""
+    import os
+    import signal
+
+    import repro_torch.launch.train as train_mod
+
+    train_mod.make_production_mesh = lambda **_: mesh  # type: ignore[assignment]
+    base = train_mod.SyntheticLMDataset
+    rank = dist.get_rank()
+
+    @dataclasses.dataclass(frozen=True)
+    class Preempting(base):  # type: ignore[misc, valid-type]
+        def batch_at(self, s: int) -> Any:
+            if s == preempt_at and rank == preempt_rank:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return base.batch_at(self, s)
+
+    kw = dict(arch=arch, steps=steps, global_batch=4, seq_len=32, use_mesh="single",
+              device="cpu", log_every=steps, save_every=10**6)
+    torch.use_deterministic_algorithms(True)
+    unbroken = train_mod.run_training(**kw)
+    train_mod.SyntheticLMDataset = Preempting  # type: ignore[misc]
+    first = train_mod.run_training(**kw, ckpt_dir=root)
+    train_mod.SyntheticLMDataset = base  # type: ignore[misc]
+    second = train_mod.run_training(**kw, ckpt_dir=root)
+    return dict(unbroken=unbroken, first=first, second=second,
+                saved=sorted(p.name for p in Path(root).iterdir()))
